@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (pbft_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py        # one card, no arguments
+
+Phases, each one JSON line; any failure ends the script with a nonzero exit
+and no result line:
+
+1. env      the card (nvidia-smi name and power limit), torch/CUDA versions,
+            the kernel build from the sources in this checkout (nvcc for
+            sm_90a, one process per source) with registers and spills.
+2. kernels  each CUDA kernel against its plain PyTorch version on the card at
+            B = 4096: inv and pow_p58 on random carried limbs plus the
+            hostile-bounds rows (+-1023 per limb, alternating) and zero,
+            compared after canon; the ladder on random scalars below L and
+            decompressed keys (small-order ones included), compared through
+            compress. Tolerance: exact equality. A few rows against the
+            big-integer oracle.
+3. verify   the first main path: verify_many at every pad shape and at
+            ragged sizes, on batches signed with the port's oracle that mix in
+            invalid rows; verdicts equal ref.verify row for row, and a fixed
+            item set gives identical verdicts at every pad shape.
+4. service  the second main path: the port's VerifyServiceDaemon warms on
+            the card and four client threads (an f = 1 cluster's replicas)
+            send 8 requests of 1,024 triples each over the 128-byte protocol,
+            with status probes between. Twice: with the daemon's defaults
+            (no accumulation window, two launches in flight), then with a
+            4,096-item accumulation window (flush_items), which must merge
+            requests. Verdicts correct, nothing served by the fallback; then
+            one 5,000-item engine call across the 4,096 chunk boundary.
+5. timing   CUDA-event times of each kernel and of its plain version at
+            B = 4096, the bound of each, the verify_many rate at 4096 and the
+            service rates, beside the card's name and power limit.
+
+Launch counts are set to 0 just before each path (verify_many; each service
+run, after its warmup; the chunked call) and read just after it: every
+kernel must have launched exactly once per window that path formed.
+
+The line before the last is the kernel table ({"kernels": [...]}); the last
+line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+B = 4096
+VERIFY_SIZES = (16, 64, 256, 1024, 4096, 1, 17, 300, 5000)  # 5000 pads to 8192
+SEED = 0x5EED
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_RESULTS_PER_CLK_PER_SM = 64  # sm_90 int32 multiply-add throughput
+
+# int32 operations per item: the least the functions need in radix 2^8 with
+# the carry schedule of field.py (so the same integers and bounds proof).
+CARRY_OPS = 32 * 3 + 1  # per pass: mask, shift, add per limb; x38 into limb 0
+MUL_OPS = 1024 + 32 + 4 * CARRY_OPS  # products, lo + 38*hi fold, 4 passes
+SQR_OPS = 528 + 32 + 32 + 4 * CARRY_OPS  # 496 cross + 32 diagonal, 2*a_i, fold
+ADD_OPS = 32 + 2 * CARRY_OPS  # add/sub/neg, and mul_small<2> as an add
+
+
+def _chain_ladder_ops(sqr: int, mul: int, mul2: int) -> dict:
+    pdbl = 4 * sqr + 4 * mul + mul2 + 7 * ADD_OPS  # ed25519.point_double
+    padd = 9 * mul + mul2 + 8 * ADD_OPS  # ed25519.point_add
+    return {
+        "inv": 254 * sqr + 11 * mul,
+        "p58": 251 * sqr + 11 * mul,
+        # table: 1 doubling + 13 additions; then 128 steps of 2 dbl + 1 add
+        "ladder": pdbl + 13 * padd + 128 * (2 * pdbl + padd),
+    }
+
+
+OPS_PER_ITEM = _chain_ladder_ops(SQR_OPS, MUL_OPS, ADD_OPS)
+# What fe25519.cuh executes: a squaring is a full multiply, mul_small<2> a
+# 32-limb multiply with 4 carry passes. Printed beside the bound.
+KERNEL_OPS_PER_ITEM = _chain_ladder_ops(MUL_OPS, MUL_OPS, 32 + 4 * CARRY_OPS)
+BYTES_PER_ITEM = {  # each input read once, each output written once
+    "inv": 2 * 32 * 4,
+    "p58": 2 * 32 * 4,
+    "ladder": (128 + 4 * 32 + 4 * 32) * 4,
+}
+SOURCES = {
+    "inv": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:184"),
+    "p58": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:190"),
+    "ladder": ("pbft_tpu_torch/crypto/csrc/ladder.cu", "pbft_tpu/crypto/pallas_kernels.py:210"),
+}
+
+
+class PhaseFailed(Exception):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise PhaseFailed(what)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}, default=str), flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=30,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call on the current stream (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# Test data: signed with the port's oracle, invalid rows mixed in.
+# ---------------------------------------------------------------------------
+
+SMALL_ORDER = [
+    (1).to_bytes(32, "little"),  # identity
+    (2**255 - 19 - 1).to_bytes(32, "little"),  # (0, -1), order 2
+    bytes(32),  # y = 0: order 4
+    bytes(31) + b"\x80",  # y = 0 with the sign bit: order 4
+]
+
+
+def make_pool(ref, rng, n_valid: int = 96):
+    """(items, oracle verdicts): valid signatures, then corrupted R,
+    corrupted message, malleated S + L, y = p, an off-curve y, small-order A
+    (with R = [S]B, which the cofactorless equation accepts, and with a junk
+    R) and small-order R."""
+    items = []
+    for _ in range(n_valid):
+        seed = rng.bytes(32)
+        msg = rng.bytes(32)
+        pub = ref.public_key(seed)
+        sig = ref.sign(seed, msg)
+        s = int.from_bytes(sig[32:], "little")
+        items += [
+            (pub, msg, sig),
+            (pub, msg, bytes([sig[0] ^ 0x40]) + sig[1:]),
+            (pub, rng.bytes(32), sig),
+            (pub, msg, sig[:32] + (s + ref.L).to_bytes(32, "little")),
+        ]
+    pub0, msg0, sig0 = items[0]
+    off_curve = next(
+        k.to_bytes(32, "little") for k in range(2, 1000)
+        if ref.point_decompress(k.to_bytes(32, "little")) is None
+    )
+    items += [
+        ((2**255 - 19).to_bytes(32, "little"), msg0, sig0),
+        (off_curve, msg0, sig0),
+    ]
+    for enc in SMALL_ORDER:
+        s = int.from_bytes(rng.bytes(32), "little") % ref.L
+        r_enc = ref.point_compress(ref.scalar_mult(s, ref.BASE))
+        items += [
+            (enc, msg0, r_enc + s.to_bytes(32, "little")),
+            (enc, msg0, sig0),
+            (pub0, msg0, enc + sig0[32:]),
+        ]
+    want = [ref.verify(*it) for it in items]
+    return items, want
+
+
+# ---------------------------------------------------------------------------
+# Phases.
+# ---------------------------------------------------------------------------
+
+
+def phase_env(torch, K, card: str) -> dict:
+    info = K.build()
+    props = torch.cuda.get_device_properties(0)
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    env = {
+        "card": card,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "sms": props.multi_processor_count,
+        "sm_clock_max_mhz": clock_mhz,
+        "build_s": round(info["build_s"], 3),
+        "compiled": info["compiled"],
+        "kernels": info["kernels"],
+    }
+    for name, regs in info["kernels"].items():
+        check("registers" in regs, f"no ptxas report for {name}")
+    emit("env", **env)
+    return env
+
+
+def phase_kernels(torch, F, E, K, ref, rng, card: str) -> dict:
+    dev = torch.device("cuda")
+    errs = {}
+    # Chains: random carried limbs + hostile bounds + zero + small values.
+    x = rng.integers(-(2**9) + 1, 2**9, size=(B, F.NLIMBS)).astype(np.int32)
+    x[0] = 1023
+    x[1] = -1023
+    x[2] = [1023 if i % 2 else -1023 for i in range(F.NLIMBS)]
+    x[3] = 0
+    x[4] = F.limbs_const(1)
+    x[5] = F.limbs_const(F.P - 1)
+    xt = torch.from_numpy(x).to(dev)
+    for name, fn, plain, expo in (
+        ("inv", K.inv, K.inv_plain, F.P - 2),
+        ("p58", K.pow_p58, K.pow_p58_plain, (F.P - 5) // 8),
+    ):
+        got, want = fn(xt), plain(xt)
+        torch.cuda.synchronize()
+        raw_equal = bool(torch.equal(got, want))
+        gc, wc = F.canon(got), F.canon(want)
+        err = int((gc - wc).abs().max().item())
+        oracle_rows = 8
+        oracle_ok = all(
+            F.limbs_to_int(gc[i]) == pow(F.limbs_to_int(x[i]) % F.P, expo, F.P)
+            for i in range(oracle_rows)
+        )
+        emit("kernels", kernel=name, batch=B, raw_limbs_equal=raw_equal,
+             canon_equal=err == 0, max_abs_err=err, oracle_rows=oracle_rows,
+             oracle_ok=oracle_ok, card=card)
+        check(err == 0 and oracle_ok, f"{name} kernel disagrees with its plain version")
+        errs[name] = err
+    # Ladder: random scalars below L, decompressed keys (small-order too).
+    seeds = [rng.bytes(32) for _ in range(32)]
+    keys = [ref.public_key(s) for s in seeds] + SMALL_ORDER
+    pubs = np.stack([np.frombuffer(keys[i % len(keys)], np.uint8) for i in range(B)])
+    s_int = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(B)]
+    h_int = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(B)]
+    s_int[0] = h_int[0] = 0  # identity accumulator through compress
+    s_int[1] = 0
+    h_int[2] = 0
+
+    def bits(vals):
+        raw = np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint8) for v in vals])
+        return F.scalar_bits(F.bytes_to_limbs(torch.from_numpy(raw).to(dev)))
+
+    ok, a_pt = E.decompress(torch.from_numpy(pubs).to(dev))
+    check(bool(ok.all()), "test keys failed to decompress")
+    a_neg = E.point_neg(a_pt)
+    sb, hb = bits(s_int), bits(h_int)
+    got = K.ladder(sb, hb, a_neg)
+    want = K.ladder_plain(sb, hb, a_neg)
+    torch.cuda.synchronize()
+    raw_equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    enc_got, enc_want = E.compress(got), E.compress(want)
+    err = int((enc_got.int() - enc_want.int()).abs().max().item())
+    oracle_rows = list(range(4)) + [B - 1 - k for k in range(len(SMALL_ORDER))]
+    oracle_ok = True
+    for i in oracle_rows:
+        ax, ay = ref.point_decompress(keys[i % len(keys)])
+        expect = ref.point_add(ref.scalar_mult(s_int[i], ref.BASE), ref.scalar_mult(h_int[i], ((-ax) % F.P, ay)))
+        oracle_ok &= bytes(enc_got[i].cpu().numpy()) == ref.point_compress(expect)
+    emit("kernels", kernel="ladder", batch=B, raw_limbs_equal=raw_equal,
+         compress_equal=err == 0, max_abs_err=err, oracle_rows=len(oracle_rows),
+         oracle_ok=oracle_ok, card=card)
+    check(err == 0 and oracle_ok, "ladder kernel disagrees with its plain version")
+    errs["ladder"] = err
+    return errs
+
+
+def check_launches(K, path: str, windows: int) -> dict:
+    """Read the counts after a path; each kernel launches once per window."""
+    got = dict(K.LAUNCHES)
+    emit("launches", path=path, windows=windows, **got)
+    check(all(got[k] == windows for k in K.KERNELS), f"{path}: {got} launches for {windows} windows")
+    return got
+
+
+def phase_verify(batch, pool, want, rng, card: str) -> int:
+    """verify_many forms one window per call; returns the number of calls."""
+    idx = np.arange(len(pool))
+    for n in VERIFY_SIZES:
+        pick = rng.choice(idx, size=n, replace=n > len(pool))
+        items = [pool[i] for i in pick]
+        t0 = time.perf_counter()
+        got = batch.verify_many(items)
+        secs = time.perf_counter() - t0
+        expect = [want[i] for i in pick]
+        emit("verify", items=n, padded=batch.pad_size(n), rejected=expect.count(False),
+             equal_to_oracle=got == expect, secs=round(secs, 4), card=card)
+        check(got == expect, f"verdicts differ from the oracle at {n} items")
+    fixed_pick = list(range(0, len(pool), max(1, len(pool) // 16)))[:16]
+    fixed = [pool[i] for i in fixed_pick]
+    per_shape = {size: batch.verify_many(fixed, pad_to=size) for size in batch._PAD_LADDER}
+    same = all(v == per_shape[16] for v in per_shape.values())
+    emit("verify", fixed_items=len(fixed), shapes=list(per_shape), identical_across_shapes=same,
+         equal_to_oracle=per_shape[16] == [want[i] for i in fixed_pick], card=card)
+    check(same and per_shape[16] == [want[i] for i in fixed_pick], "verdicts depend on the pad shape")
+    return len(VERIFY_SIZES) + len(per_shape)
+
+
+def _request(sock, items):
+    sock.sendall(len(items).to_bytes(4, "big") + b"".join(p + m + s for p, m, s in items))
+    out = bytearray()
+    while len(out) < len(items):
+        chunk = sock.recv(len(items) - len(out))
+        if not chunk:
+            raise ConnectionError("service closed mid-reply")
+        out += chunk
+    return [bool(b) for b in out]
+
+
+def run_service(VS, K, pool, want, card: str, path: str, **daemon_kwargs) -> tuple[dict, dict]:
+    """One daemon, four clients of 8 x 1,024 triples; (result, launches)."""
+    daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0, **daemon_kwargs)
+    try:
+        t0 = time.perf_counter()
+        daemon.start(wait_ready=True, timeout=600)
+        warm_s = time.perf_counter() - t0
+        st = VS.probe_status(daemon.address)
+        check(st == (VS.STATE_READY, 1, 5), f"daemon status {st}")
+        K.reset_launches()  # after the warmup's one launch per shape
+        errors = []
+        bad = []
+
+        def client(cid: int):
+            crng = np.random.default_rng(SEED + cid)
+            host, port = daemon.address.rsplit(":", 1)
+            try:
+                with socket.create_connection((host, int(port)), timeout=120) as sock:
+                    for _ in range(8):
+                        pick = crng.integers(0, len(pool), size=1024)
+                        got = _request(sock, [pool[i] for i in pick])
+                        if got != [want[i] for i in pick]:
+                            bad.append(cid)
+                        sock.sendall(VS.STATUS_PROBE.to_bytes(4, "big"))
+                        if VS.unpack_status(VS._recv_exact(sock, VS.STATUS_LEN)) is None:
+                            bad.append(cid)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        secs = time.perf_counter() - t0
+        js = VS.probe_status_json(daemon.address)
+        result = {
+            "path": path, **daemon_kwargs, "state": js["state"], "warmed_shapes": js["warmed_shapes"],
+            "warm_s": round(warm_s, 3), "requests": js["requests"], "launches": js["launches"],
+            "items": js["items"], "fallback_items": js["fallback_items"],
+            "verdicts_correct": not bad and not errors, "secs": secs,
+            "verifies_per_s": 4 * 8 * 1024 / secs, "card": card,
+        }
+        emit("service", **result, errors=errors[:3])
+        check(not errors and not bad, "service verdicts wrong or a client failed")
+        check(js["requests"] == 32, f"{js['requests']} requests reached the service")
+        check(js["fallback_items"] == 0, "the fallback served traffic")
+        return result, check_launches(K, path, js["launches"])
+    finally:
+        daemon.stop()
+
+
+def run_chunked(VS, K, pool, want, card: str) -> dict:
+    """One 5,000-item engine call: two windows across the 4,096 boundary."""
+    engine = VS.CudaVerifyEngine()
+    engine.warm()
+    big = [pool[i % len(pool)] for i in range(5000)]
+    K.reset_launches()
+    ok = engine.verify(big) == [want[i % len(pool)] for i in range(5000)]
+    emit("service", path="engine_chunked", items=len(big), correct=ok, card=card)
+    check(ok, "chunked verify across the 4096 boundary is wrong")
+    return check_launches(K, "engine_chunked", 2)
+
+
+def phase_timing(torch, F, E, K, batch, pool, rng, card, env) -> dict:
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.integers(-(2**9) + 1, 2**9, size=(B, F.NLIMBS)).astype(np.int32)).to(dev)
+    pubs = np.stack([np.frombuffer(pool[i % len(pool)][0], np.uint8) for i in range(B)])
+    _, a_pt = E.decompress(torch.from_numpy(pubs).to(dev))
+    a_neg = E.point_neg(a_pt)
+    sb = torch.from_numpy(rng.integers(0, 2, size=(B, 256)).astype(np.int32)).to(dev)
+    hb = torch.from_numpy(rng.integers(0, 2, size=(B, 256)).astype(np.int32)).to(dev)
+    rate = INT32_RESULTS_PER_CLK_PER_SM * env["sms"] * env["sm_clock_max_mhz"] * 1e6
+    out = {}
+    for name, fn, plain, iters, plain_iters in (
+        ("inv", lambda: K.inv(x), lambda: K.inv_plain(x), 20, 3),
+        ("p58", lambda: K.pow_p58(x), lambda: K.pow_p58_plain(x), 20, 3),
+        ("ladder", lambda: K.ladder(sb, hb, a_neg), lambda: K.ladder_plain(sb, hb, a_neg), 5, 1),
+    ):
+        ms = cuda_ms(fn, iters, warmup=2)
+        plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+        ops = OPS_PER_ITEM[name] * B
+        nbytes = BYTES_PER_ITEM[name] * B
+        ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "int32_ops": ops, "bytes": nbytes,
+            "kernel_int32_ops": KERNEL_OPS_PER_ITEM[name] * B,
+            "kernel_ops_ms": KERNEL_OPS_PER_ITEM[name] * B / rate * 1e3,
+        }
+        emit("timing", kernel=name, batch=B, **out[name], card=card)
+    items = [pool[i % len(pool)] for i in range(B)]
+    batch.verify_many(items)
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        batch.verify_many(items)
+    secs = time.perf_counter() - t0
+    out["verify_many_per_s"] = reps * B / secs
+    emit("timing", path="verify_many", batch=B, verifies_per_s=out["verify_many_per_s"],
+         ms_per_window=secs / reps * 1e3, card=card)
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pbft_tpu_torch.crypto import batch, kernels as K, ref
+    from pbft_tpu_torch.crypto import ed25519 as E
+    from pbft_tpu_torch.crypto import field as F
+    from pbft_tpu_torch.net import verify_service as VS
+
+    card = smi("name,power.limit")
+    print(card, flush=True)
+    rng = np.random.default_rng(SEED)
+    phase = "env"
+    try:
+        env = phase_env(torch, K, card)
+        phase = "kernels"
+        errs = phase_kernels(torch, F, E, K, ref, rng, card)
+        phase = "verify"
+        t0 = time.perf_counter()
+        pool, want = make_pool(ref, rng)
+        emit("verify", pool_items=len(pool), pool_rejected=want.count(False),
+             oracle_s=round(time.perf_counter() - t0, 3))
+        K.reset_launches()
+        windows = phase_verify(batch, pool, want, rng, card)
+        launches = {"verify_many": check_launches(K, "verify_many", windows)}
+        phase = "service"
+        services = {}
+        for path, kwargs in (("service_default", {}),
+                             ("service_window_4096", {"flush_items": 4096, "flush_us": 100_000})):
+            services[path], launches[path] = run_service(VS, K, pool, want, card, path, **kwargs)
+        window_run = services["service_window_4096"]
+        check(window_run["launches"] < window_run["requests"], "no coalescing in the 4,096-item window")
+        launches["engine_chunked"] = run_chunked(VS, K, pool, want, card)
+        phase = "timing"
+        times = phase_timing(torch, F, E, K, batch, pool, rng, card, env)
+        for path, run in services.items():
+            emit("timing", path=path, verifies_per_s=run["verifies_per_s"],
+                 launches=run["launches"], requests=run["requests"], card=card)
+    except Exception as e:  # noqa: BLE001 - every phase failure ends the run
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        return 1
+    table = []
+    for name in K.KERNELS:
+        source, replaces = SOURCES[name]
+        t = times[name]
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        table.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": float(errs[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "registers": env["kernels"][name].get("registers"),
+            "spill_store_bytes": env["kernels"][name].get("spill_store_bytes"),
+        })
+    print(card, flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

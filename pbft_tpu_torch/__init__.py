@@ -1,0 +1,23 @@
+"""pbft_tpu_torch: the PyTorch/CUDA port of pbft_tpu's device layer.
+
+The port runs batched Ed25519 verification, and the verify service that owns
+the accelerator, on an NVIDIA H100. Every long multiply chain that the JAX
+package ran as a Pallas kernel is a CUDA C++ kernel written for sm_90a
+(``crypto/csrc/``); everything around the kernels is plain PyTorch.
+
+Rules: the port imports nothing of JAX and nothing of ``pbft_tpu`` (it keeps
+its own copies of what it needs); every entry point takes an explicit
+``device`` and runs on the card unless the caller asks for the CPU
+(``device.resolve_device``). Importing this package imports nothing heavy.
+
+Modules, each named after its JAX counterpart:
+
+- ``crypto.ref``      RFC 8032 oracle and signer (hashlib only)
+- ``crypto.field``    GF(2^255-19) and mod-L limb arithmetic
+- ``crypto.sha512``   SHA-512 on int64-held 32-bit halves
+- ``crypto.kernels``  the three kernel wrappers, plain versions, counters
+- ``crypto.ed25519``  decompress / Shamir ladder / compress / verify_kernel
+- ``crypto.batch``    pad ladder and ``verify_many``
+- ``net.service``     the 128-byte-triple coalescing server
+- ``net.verify_service``  ``CudaVerifyEngine``, the daemon, the CLI
+"""

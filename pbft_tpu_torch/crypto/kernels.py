@@ -1,0 +1,307 @@
+"""The three CUDA kernels of the verify path: wrappers, plain versions,
+launch counters and the build.
+
+=========  ======================  ====================================
+wrapper    CUDA source             replaces (pbft_tpu/crypto/...)
+=========  ======================  ====================================
+``inv``      ``csrc/chains.cu``    ``pallas_kernels.py`` ``_inv_kernel``
+``pow_p58``  ``csrc/chains.cu``    ``pallas_kernels.py`` ``_p58_kernel``
+``ladder``   ``csrc/ladder.cu``    ``pallas_kernels.py`` ``_ladder_kernel``
+=========  ======================  ====================================
+
+Each wrapper takes its plain PyTorch version (``inv_plain``,
+``pow_p58_plain``, ``ladder_plain``: the ports of ``field.inv``,
+``field.pow_p58`` and ``ed25519.shamir_ladder``) **only** for a tensor on
+the CPU. For a CUDA tensor it launches its kernel or raises; nothing falls
+back. Inputs are checked (device, dtype, shape, contiguity), transposed to
+the kernels' limb-major (32, n) layout, and launched on the calling
+thread's current stream (the verify service runs two launch threads, each
+on its own stream). ``LAUNCHES`` counts kernel launches per wrapper.
+
+The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use, one
+process per source started together, into plain-C shared libraries loaded
+with ``ctypes``: ``build/pbft_tpu_torch/<hash of sources, arch, nvcc>/``
+under the repository root. Nothing is compiled when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import field as F
+from . import ref
+
+ARCH = "sm_90a"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pbft_tpu_torch"
+# library name -> source; each library is built by its own nvcc process.
+_SOURCES = {"chains": "chains.cu", "ladder": "ladder.cu"}
+_HEADERS = ("fe25519.cuh",)
+# wrapper -> (library, C entry point, mangled-name fragment of its kernel).
+KERNELS = {
+    "inv": ("chains", "pbft_inv", "chain_kernelILb1"),
+    "p58": ("chains", "pbft_pow_p58", "chain_kernelILb0"),
+    "ladder": ("ladder", "pbft_ladder", "ladder_kernel"),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()
+_build_lock = threading.Lock()
+_libs: dict = {}
+BUILD_INFO: dict = {}
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# Build and load.
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def _parse_ptxas(text: str) -> dict:
+    """``-Xptxas -v`` output -> {mangled kernel: registers/spills/stack}."""
+    out: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def build() -> dict:
+    """Compile (if needed) and load the kernel libraries; idempotent.
+
+    Returns ``BUILD_INFO``: the build directory, seconds spent, whether
+    anything was compiled, and per-kernel registers/spills from ptxas."""
+    with _build_lock:
+        if len(_libs) == len(_SOURCES):
+            return BUILD_INFO
+        t0 = time.perf_counter()
+        nvcc = _nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout
+        h = hashlib.sha256(f"{ARCH}\n{version}".encode())
+        for name in sorted(list(_SOURCES.values()) + list(_HEADERS)):
+            h.update(name.encode() + b"\0" + (_CSRC / name).read_bytes())
+        out_dir = _BUILD_ROOT / h.hexdigest()[:16]
+        out_dir.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for lib, src in _SOURCES.items():
+            if (out_dir / f"lib{lib}.so").exists():
+                continue
+            tmp = out_dir / f"lib{lib}.so.tmp{os.getpid()}"
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                   "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(_CSRC),
+                   "-o", str(tmp), str(_CSRC / src)]
+            procs[lib] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True), tmp)
+        logs = {lib: proc.communicate()[0] for lib, (proc, _) in procs.items()}
+        for lib, (proc, tmp) in procs.items():
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {_SOURCES[lib]}:\n{logs[lib]}")
+            (out_dir / f"lib{lib}.ptxas.txt").write_text(logs[lib])
+            os.replace(tmp, out_dir / f"lib{lib}.so")
+        ptxas: dict = {}
+        for lib in _SOURCES:
+            report = out_dir / f"lib{lib}.ptxas.txt"
+            if report.exists():
+                ptxas.update(_parse_ptxas(report.read_text()))
+            _libs[lib] = ctypes.CDLL(str(out_dir / f"lib{lib}.so"))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for lib, entry, _ in KERNELS.values():
+            fn = getattr(_libs[lib], entry)
+            fn.restype = ci
+            fn.argtypes = [vp] * (11 if entry == "pbft_ladder" else 2) + [ci, vp]
+        BUILD_INFO.update(
+            dir=str(out_dir),
+            build_s=time.perf_counter() - t0,
+            compiled=sorted(procs),
+            kernels={
+                name: next((v for k, v in ptxas.items() if frag in k), {})
+                for name, (_, _, frag) in KERNELS.items()
+            },
+        )
+        return BUILD_INFO
+
+
+def _entry(name: str):
+    build()
+    lib, entry, _ = KERNELS[name]
+    return getattr(_libs[lib], entry)
+
+
+def _check(x: torch.Tensor, what: str, last: int) -> None:
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor")
+    if x.dtype != torch.int32:
+        raise ValueError(f"{what}: expected int32, got {x.dtype}")
+    if x.dim() < 1 or x.shape[-1] != last:
+        raise ValueError(f"{what}: expected shape (..., {last}), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _limb_major(x: torch.Tensor, g: int, width: int) -> torch.Tensor:
+    """(..., width) -> (width, g) contiguous: the kernels' boundary layout."""
+    return x.reshape(g, width).t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The chain kernels: inv and pow_p58.
+# ---------------------------------------------------------------------------
+
+
+def inv_plain(z):
+    """Plain version of ``inv``: ``field.inv``."""
+    return F.inv(z)
+
+
+def pow_p58_plain(z):
+    """Plain version of ``pow_p58``: ``field.pow_p58``."""
+    return F.pow_p58(z)
+
+
+def _run_chain(name: str, z: torch.Tensor) -> torch.Tensor:
+    _check(z, name, F.NLIMBS)
+    g = z.numel() // F.NLIMBS
+    with torch.cuda.device(z.device):
+        zt = _limb_major(z, g, F.NLIMBS)
+        out = torch.empty_like(zt)
+        _raise_on(_entry(name)(zt.data_ptr(), out.data_ptr(), g, _stream(z.device)), name)
+        _count(name)
+        return out.t().contiguous().reshape(z.shape)
+
+
+def inv(z: torch.Tensor) -> torch.Tensor:
+    """z^(p-2) (inv(0) = 0) on (..., 32) carried int32 limbs; carried out."""
+    if z.device.type == "cpu":
+        return inv_plain(z)
+    return _run_chain("inv", z)
+
+
+def pow_p58(z: torch.Tensor) -> torch.Tensor:
+    """z^((p-5)/8) on (..., 32) carried int32 limbs; carried out."""
+    if z.device.type == "cpu":
+        return pow_p58_plain(z)
+    return _run_chain("p58", z)
+
+
+# ---------------------------------------------------------------------------
+# The ladder kernel.
+# ---------------------------------------------------------------------------
+
+
+def _ladder_consts() -> np.ndarray:
+    """The (32, 32) limb-major constant block of the TPU ladder kernel
+    (``pallas_kernels._LADDER_CONSTS``): column 0 = 2p, 1 = 2d, 2 = 1, then
+    3 + 4*s + c = coordinate c of [s]B."""
+    out = np.zeros((F.NLIMBS, 32), np.int32)
+    out[:, 0] = F.limbs_const(2 * F.P)
+    out[:, 1] = F.limbs_const(2 * ref.D % F.P)
+    out[:, 2] = F.limbs_const(1)
+    for s, entry in enumerate(ref.shamir_row0()):
+        for c, v in enumerate(entry):
+            out[:, 3 + 4 * s + c] = F.limbs_const(v)
+    return out
+
+
+LADDER_CONSTS = _ladder_consts()
+_consts_on: dict = {}
+
+
+def ladder_plain(s_bits, h_bits, a_neg):
+    """Plain version of ``ladder``: ``ed25519.shamir_ladder``."""
+    from .ed25519 import shamir_ladder
+
+    return shamir_ladder(s_bits, h_bits, a_neg)
+
+
+def ladder_digits(s_bits: torch.Tensor, h_bits: torch.Tensor) -> torch.Tensor:
+    """(g, 256) LSB-first bit arrays -> (g, 128) MSB-first digits
+    d = s0 + 2 s1 + 4 h0 + 8 h1 in 0..15 (``pallas_kernels.ladder``)."""
+    dig = s_bits[:, 0::2] + 2 * s_bits[:, 1::2] + 4 * h_bits[:, 0::2] + 8 * h_bits[:, 1::2]
+    return dig.flip(1)
+
+
+def ladder(s_bits: torch.Tensor, h_bits: torch.Tensor, a_neg):
+    """[S]B + [h](-A). s_bits, h_bits: (..., 256) int32 in {0, 1},
+    LSB-first; a_neg: 4 x (..., 32) int32 (extended X, Y, Z, T). Returns the
+    accumulator point, 4 x (..., 32) int32, batch-major."""
+    if s_bits.device.type == "cpu":
+        return ladder_plain(s_bits, h_bits, a_neg)
+    _check(s_bits, "ladder s_bits", 256)
+    _check(h_bits, "ladder h_bits", 256)
+    if h_bits.shape != s_bits.shape or len(a_neg) != 4:
+        raise ValueError("ladder: mismatched s_bits/h_bits or a_neg is not 4 coordinates")
+    lead = s_bits.shape[:-1]
+    for c in a_neg:
+        _check(c, "ladder a_neg", F.NLIMBS)
+        if c.shape[:-1] != lead or c.device != s_bits.device:
+            raise ValueError("ladder: a_neg does not match the scalars' batch or device")
+    dev = s_bits.device
+    g = s_bits.numel() // 256
+    with torch.cuda.device(dev):
+        consts = _consts_on.get(dev)
+        if consts is None:
+            consts = _consts_on.setdefault(dev, torch.from_numpy(LADDER_CONSTS).to(dev))
+        digits = ladder_digits(s_bits.reshape(g, 256), h_bits.reshape(g, 256)).t().contiguous()
+        coords = [_limb_major(c, g, F.NLIMBS) for c in a_neg]
+        outs = [torch.empty((F.NLIMBS, g), dtype=torch.int32, device=dev) for _ in range(4)]
+        table = torch.empty((16 * 4 * F.NLIMBS * g,), dtype=torch.int32, device=dev)
+        rc = _entry("ladder")(
+            consts.data_ptr(), digits.data_ptr(), *(c.data_ptr() for c in coords),
+            *(o.data_ptr() for o in outs), table.data_ptr(), g, _stream(dev),
+        )
+        _raise_on(rc, "ladder")
+        _count("ladder")
+        return tuple(o.t().contiguous().reshape(lead + (F.NLIMBS,)) for o in outs)

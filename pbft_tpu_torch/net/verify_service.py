@@ -1,0 +1,438 @@
+"""The persistent verify service on the card: the port of
+``pbft_tpu/net/verify_service.py`` (engine, daemon, status probes, CLI).
+
+One long-lived process owns the H100: ``CudaVerifyEngine.warm()`` builds (or
+loads) the kernel library and runs one launch per pad-ladder window shape at
+startup, outside any request; then the daemon serves the 128-byte-triple
+protocol of ``service.py``, merging the traffic of every colocated replica
+into one window per launch.
+
+Readiness handshake: a request with item count 0 returns an 8-byte status
+record (state warming|ready|cpu-only, device count, warmed shape count);
+count 0xFFFFFFFF returns a length-prefixed JSON status. ``core/verifier.cc``
+RemoteVerifier and the JAX package's ServiceVerifier speak it unchanged.
+While the engine warms, the daemon serves traffic from its fallback (the
+oracle, per item) and counts what it served in ``fallback_items``. A failed
+warm is not hidden: it is reported in the JSON status, re-raised by
+``start(wait_ready=True)``, and ends the CLI with a nonzero exit. The
+``cpu-only`` state is reached only through ``backend="cpu"``.
+
+Host<->device pipeline: each window is staged in a pinned host buffer of its
+own and copied with ``non_blocking``; with the dispatcher's ``inflight=2``
+each launch thread runs on its own CUDA stream (from PyTorch's stream pool),
+so window N+1 stages while window N computes.
+
+CLI: ``python -m pbft_tpu_torch.net.verify_service --port 7600 [--device cpu]``.
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import sys
+import threading
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .service import (  # noqa: F401 - re-exported API
+    Item,
+    STATE_CPU_ONLY,
+    STATE_NAMES,
+    STATE_READY,
+    STATE_WARMING,
+    STATUS_JSON_PROBE,
+    STATUS_LEN,
+    STATUS_MAGIC,
+    STATUS_PROBE,
+    STATUS_VERSION,
+    VerifierService,
+    _recv_exact,
+    cpu_backend,
+    pack_status,
+    unpack_status,
+)
+
+# -- the card-owning engine --------------------------------------------------
+
+
+class CudaVerifyEngine:
+    """Owns the card: the kernel library and one warmed launch per window
+    shape. The duck type of the JAX package's ShardedVerifyEngine:
+    ``warm()``, ``verify(items)``, ``device_count``, ``warmed_sizes``,
+    ``stats``.
+
+    ``kernel`` replaces ``ed25519.verify_kernel`` ((B,32),(B,32),(B,64)
+    uint8 tensors -> (B,) bool tensor); tests pass a cheap stand-in.
+    ``device`` is resolved at ``warm()`` (``None`` = the card)."""
+
+    def __init__(
+        self,
+        shapes: Optional[Sequence[int]] = None,
+        device=None,
+        kernel=None,
+    ):
+        if shapes is None:
+            from ..crypto.batch import _PAD_LADDER
+
+            shapes = _PAD_LADDER
+        self._want_shapes = tuple(sorted(set(shapes)))
+        self._want_device = device
+        self._kernel = kernel
+        self._lock = threading.Lock()
+        self._warmed: Tuple[int, ...] = ()
+        self.device: Optional[torch.device] = None
+        self.device_count = 0
+        self.stats: dict = {}
+
+    # -- startup -------------------------------------------------------------
+
+    def warm(self) -> dict:
+        """Resolve the device, build or load the kernels, and launch once at
+        every window shape (an all-pad window, which must verify True).
+
+        Returns (and stores in ``self.stats``) the warmup accounting in the
+        JAX engine's keys: ``compiled`` counts the shapes warmed here,
+        ``aot_loaded`` is 0 (nothing is serialized), ``cold_compile_s`` is
+        the whole warmup (kernel build included), ``build_s`` the build or
+        load of the kernel library alone."""
+        from ..crypto import kernels
+        from ..crypto.batch import pad_batch
+
+        t0 = time.perf_counter()
+        dev = resolve_device(self._want_device)
+        with self._lock:
+            stats = {
+                "devices": 1,
+                "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                "shapes": [],
+                "aot_loaded": 0,
+                "compiled": 0,
+                "warm_load_s": 0.0,
+                "cold_compile_s": 0.0,
+                "build_s": 0.0,
+            }
+            if dev.type == "cuda" and self._kernel is None:
+                stats["build_s"] = round(kernels.build()["build_s"], 3)
+            self.device = dev
+            for size in self._want_shapes:
+                pubs, msgs, sigs, _ = pad_batch([], size)
+                out = self._launch(pubs, msgs, sigs)
+                if self._kernel is None and not out.all():
+                    raise RuntimeError(f"pad triple rejected at window {size}")
+                stats["compiled"] += 1
+                stats["shapes"].append(size)
+            stats["cold_compile_s"] = round(time.perf_counter() - t0, 3)
+            self._warmed = tuple(stats["shapes"])
+            self.device_count = 1
+            self.stats = stats
+        return stats
+
+    @property
+    def warmed_sizes(self) -> Tuple[int, ...]:
+        return self._warmed
+
+    # -- serving -------------------------------------------------------------
+
+    def _launch(self, pubs: np.ndarray, msgs: np.ndarray, sigs: np.ndarray) -> np.ndarray:
+        """One padded window through the kernel -> (B,) bool numpy."""
+        from ..crypto.ed25519 import verify_kernel
+
+        kernel = self._kernel or verify_kernel
+        dev = self.device
+        if dev.type != "cuda":
+            return kernel(*(torch.from_numpy(a) for a in (pubs, msgs, sigs))).numpy()
+        # A stream of this launch's own (PyTorch's pool hands concurrent
+        # launch threads different streams) and pinned staging buffers of
+        # this window's own: no buffer is shared between in-flight windows.
+        stream = torch.cuda.Stream(device=dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            host = [torch.from_numpy(a).pin_memory() for a in (pubs, msgs, sigs)]
+            staged = [h.to(dev, non_blocking=True) for h in host]
+            out = kernel(*staged)
+            verdicts = torch.empty(out.shape, dtype=torch.bool, pin_memory=True)
+            verdicts.copy_(out, non_blocking=True)
+            stream.synchronize()
+        return verdicts.numpy()
+
+    def verify(self, items: List[Item]) -> List[bool]:
+        """Pad to a warmed window shape, stage, launch, read back. Oversized
+        batches chunk into top-of-ladder windows in order; no shape is
+        warmed at serving time."""
+        if not items:
+            return []
+        if not self._warmed:
+            raise RuntimeError("engine not warmed")
+        from ..crypto.batch import pad_batch
+
+        top = self._warmed[-1]
+        out: List[bool] = []
+        for off in range(0, len(items), top):
+            chunk = items[off : off + top]
+            size = min(s for s in self._warmed if s >= len(chunk))
+            pubs, msgs, sigs, n = pad_batch(chunk, size)
+            out.extend(bool(v) for v in self._launch(pubs, msgs, sigs)[:n])
+        return out
+
+
+# -- the daemon --------------------------------------------------------------
+
+
+class VerifyServiceDaemon:
+    """A :class:`~pbft_tpu_torch.net.service.VerifierService` that owns its
+    card's lifecycle: starts in ``warming`` (traffic served by the fallback),
+    warms the :class:`CudaVerifyEngine` on a background thread, and flips to
+    ``ready``. ``backend="cpu"`` skips the engine (state ``cpu-only``)."""
+
+    def __init__(
+        self,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        unix_path: Optional[str] = None,
+        backend: str = "cuda",
+        device=None,
+        warm_shapes: Optional[Sequence[int]] = None,
+        max_window: Optional[int] = None,
+        flush_us: int = 0,
+        flush_items: int = 0,
+        inflight: int = 2,
+        trace_path: Optional[str] = None,
+        metrics_port: Optional[int] = None,
+        engine: Optional[CudaVerifyEngine] = None,
+        fallback: Optional[Callable[[List[Item]], List[bool]]] = None,
+    ):
+        if metrics_port is not None:
+            raise NotImplementedError("the metrics surface is not ported yet")
+        if backend not in ("cuda", "cpu"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
+        self._t0 = time.monotonic()
+        self._state = STATE_WARMING
+        self._state_lock = threading.Lock()
+        self.warm_error: Optional[BaseException] = None
+        self._warm_thread: Optional[threading.Thread] = None
+        self.engine = engine
+        if engine is None and backend == "cuda":
+            self.engine = CudaVerifyEngine(shapes=warm_shapes, device=device)
+        self._fallback = fallback or cpu_backend
+        self.fallback_items = 0
+        self.service = VerifierService(
+            host=host,
+            port=port,
+            unix_path=unix_path,
+            backend=self._dispatch,
+            flush_us=flush_us,
+            flush_items=flush_items,
+            trace_path=trace_path,
+            inflight=inflight,
+            status_provider=self._status,
+            status_json_provider=self.status_json,
+        )
+        if max_window:
+            self.service.MAX_WINDOW = max_window
+
+    # -- state machine -------------------------------------------------------
+
+    @property
+    def state(self) -> int:
+        with self._state_lock:
+            return self._state
+
+    @property
+    def state_name(self) -> str:
+        return STATE_NAMES[self.state]
+
+    @property
+    def address(self) -> str:
+        return self.service.address
+
+    def _set_state(self, state: int) -> None:
+        with self._state_lock:
+            self._state = state
+
+    def _status(self) -> Tuple[int, int, int]:
+        eng = self.engine
+        return (
+            self.state,
+            eng.device_count if eng else 0,
+            len(eng.warmed_sizes) if eng else 0,
+        )
+
+    def status_json(self) -> dict:
+        eng = self.engine
+        out = {
+            "state": self.state_name,
+            "devices": eng.device_count if eng else 0,
+            "warmed_shapes": list(eng.warmed_sizes) if eng else [],
+            "backend": self.backend,
+            "uptime_s": round(time.monotonic() - self._t0, 3),
+            "requests": self.service.requests,
+            "launches": self.service.batches,
+            "items": self.service.items,
+            "fallback_items": self.fallback_items,
+        }
+        if eng and eng.stats:
+            out["warm_stats"] = eng.stats
+        if self.warm_error is not None:
+            out["warm_error"] = f"{type(self.warm_error).__name__}: {self.warm_error}"
+        return out
+
+    # -- serving -------------------------------------------------------------
+
+    def _dispatch(self, items: List[Item]) -> List[bool]:
+        """The service backend: the warmed engine when ready, the fallback
+        otherwise (a request never waits on warmup)."""
+        if self.state == STATE_READY:
+            return self.engine.verify(items)
+        with self._state_lock:
+            self.fallback_items += len(items)
+        return self._fallback(items)
+
+    def _warm(self) -> None:
+        try:
+            self.engine.warm()
+        except Exception as e:  # noqa: BLE001 - reported, never hidden
+            self.warm_error = e
+            return
+        self._set_state(STATE_READY)
+
+    def start(self, wait_ready: bool = False, timeout: float = 900.0):
+        """Serve at once; warm in the background. With ``wait_ready``, block
+        until warm and raise if the warm failed or did not finish."""
+        self.service.start()
+        if self.engine is None:
+            self._set_state(STATE_CPU_ONLY)
+            return self
+        self._warm_thread = threading.Thread(target=self._warm, daemon=True)
+        self._warm_thread.start()
+        if wait_ready:
+            self._warm_thread.join(timeout)
+            if self.warm_error is not None:
+                raise RuntimeError(f"verify engine failed to warm: {self.warm_error!r}") from self.warm_error
+            if self.state != STATE_READY:
+                raise TimeoutError(f"verify engine not warm after {timeout} s")
+        return self
+
+    def stop(self) -> None:
+        self.service.stop()
+
+
+# -- status probes -----------------------------------------------------------
+
+
+def _dial(target: str, timeout: float) -> socket.socket:
+    if target.startswith("/"):
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        sock.settimeout(timeout)
+        sock.connect(target)
+        return sock
+    host, port = target.rsplit(":", 1)
+    sock = socket.create_connection((host, int(port)), timeout=timeout)
+    # A 4-byte verify header must not sit in a Nagle stall.
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return sock
+
+
+def probe_status(target: str, timeout: float = 0.5) -> Optional[Tuple[int, int, int]]:
+    """One short-deadline status probe: (state, devices, warmed) or None
+    when the service is unreachable."""
+    try:
+        with _dial(target, timeout) as sock:
+            sock.sendall(STATUS_PROBE.to_bytes(4, "big"))
+            return unpack_status(_recv_exact(sock, STATUS_LEN))
+    except (OSError, ConnectionError, ValueError):
+        return None
+
+
+def probe_status_json(target: str, timeout: float = 2.0) -> Optional[dict]:
+    """The JSON status (state, devices, warm stats …), or None."""
+    try:
+        with _dial(target, timeout) as sock:
+            sock.sendall(STATUS_JSON_PROBE.to_bytes(4, "big"))
+            n = int.from_bytes(_recv_exact(sock, 4), "big")
+            if n > 1 << 20:
+                return None
+            return json.loads(_recv_exact(sock, n).decode())
+    except (OSError, ConnectionError, ValueError):
+        return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """The verify service CLI for a ``pbftd --verifier host:port`` cluster."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="verify service daemon on the card")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=7600)
+    parser.add_argument("--unix", default=None, help="unix socket path instead of TCP")
+    parser.add_argument(
+        "--backend",
+        default="cuda",
+        choices=["cuda", "cpu"],
+        help="cuda warms the engine (oracle fallback while warming); cpu "
+        "serves the oracle only (state cpu-only)",
+    )
+    parser.add_argument(
+        "--device",
+        default=None,
+        help="engine device (default: the card; 'cpu' runs the plain path)",
+    )
+    parser.add_argument(
+        "--warm-shapes",
+        default=None,
+        help="comma-separated window sizes to warm (default: the pad "
+        "ladder 16,64,256,1024,4096)",
+    )
+    parser.add_argument("--window", type=int, default=None, help="largest merged window in items")
+    parser.add_argument("--flush-us", type=int, default=0)
+    parser.add_argument("--flush-items", type=int, default=0)
+    parser.add_argument(
+        "--inflight",
+        type=int,
+        default=2,
+        help="overlapped launches; 2 = stage window N+1 while N computes",
+    )
+    parser.add_argument("--trace", default=None, help="JSONL per-dispatch trace file")
+    parser.add_argument("--wait-ready", action="store_true", help="block until warm before announcing")
+    args = parser.parse_args(argv)
+    shapes = [int(s) for s in args.warm_shapes.split(",") if s] if args.warm_shapes else None
+    daemon = VerifyServiceDaemon(
+        host=args.host,
+        port=args.port,
+        unix_path=args.unix,
+        backend=args.backend,
+        device=args.device,
+        warm_shapes=shapes,
+        max_window=args.window,
+        flush_us=args.flush_us,
+        flush_items=args.flush_items,
+        inflight=args.inflight,
+        trace_path=args.trace,
+    )
+    try:
+        daemon.start(wait_ready=args.wait_ready)
+    except (RuntimeError, TimeoutError) as e:
+        print(json.dumps({"ev": "verify_service_failed", "error": str(e)}), flush=True)
+        daemon.stop()
+        return 1
+    print(json.dumps({"ev": "verify_service_listening", "addr": daemon.address, **daemon.status_json()}), flush=True)
+    try:
+        state = daemon.state
+        while daemon.warm_error is None:
+            time.sleep(0.25)
+            if daemon.state != state:
+                state = daemon.state
+                print(json.dumps(daemon.status_json()), flush=True)
+        print(json.dumps({"ev": "verify_service_failed", **daemon.status_json()}), flush=True)
+        return 1
+    except KeyboardInterrupt:  # pragma: no cover - operator stop
+        return 0
+    finally:
+        daemon.stop()
+
+
+if __name__ == "__main__":  # pragma: no cover - CLI entry
+    sys.exit(main())

@@ -1,0 +1,55 @@
+"""The port's import rule: nothing in pbft_tpu_torch/ or chip_smoke.py
+imports jax or the JAX package pbft_tpu (pbft_tpu_torch is fine), checked
+on the AST of every file; and device selection never falls back to the CPU
+on its own."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from pbft_tpu_torch.device import resolve_device
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    files = [os.path.join(_REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(_REPO, "pbft_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "pbft_tpu")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) >= 14, files
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, _REPO)}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")

@@ -1,0 +1,37 @@
+"""The port's SHA-512 (pbft_tpu_torch.crypto.sha512) against hashlib at the
+lengths of tests/test_sha512.py, and against the JAX sha512 on the same
+(B, 96) batch the verifier hashes. Tolerance: exact digest bytes."""
+
+import hashlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from pbft_tpu.crypto.sha512 import sha512 as jax_sha512
+from pbft_tpu.crypto import sha512 as JS
+from pbft_tpu_torch.crypto import sha512 as S
+
+_RNG = np.random.default_rng(0x5A512)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 55, 95, 96, 111, 112, 127, 128, 129, 200, 256])
+def test_sha512_matches_hashlib(n):
+    msg = _RNG.bytes(n)
+    got = bytes(S.sha512(torch.from_numpy(np.frombuffer(msg, np.uint8).copy())).numpy())
+    assert got == hashlib.sha512(msg).digest()
+
+
+def test_sha512_batch_of_96_matches_jax_and_hashlib():
+    batch = _RNG.integers(0, 256, size=(9, 96), dtype=np.uint8)
+    got = S.sha512(torch.from_numpy(batch)).numpy()
+    want = np.asarray(jax.jit(jax_sha512)(batch))
+    np.testing.assert_array_equal(got, want)
+    for row, msg in zip(got, batch):
+        assert bytes(row) == hashlib.sha512(bytes(msg)).digest()
+
+
+def test_sha512_constants_match_jax():
+    for name in ("_H0_HI", "_H0_LO", "_K_HI", "_K_LO"):
+        np.testing.assert_array_equal(getattr(S, name), getattr(JS, name), err_msg=name)
