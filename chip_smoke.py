@@ -8,14 +8,17 @@ and no result line:
 
 1. env      the card (nvidia-smi name and power limit), torch/CUDA versions,
             the kernel build from the sources in this checkout (nvcc for
-            sm_90a, one process per source) with registers and spills.
+            sm_90a, one process per source, all started together) with
+            registers and spills; the ladder must not spill.
 2. kernels  each CUDA kernel against its plain PyTorch version on the card at
-            B = 4096: inv and pow_p58 on random carried limbs plus the
-            hostile-bounds rows (+-1023 per limb, alternating) and zero,
-            compared after canon; the ladder on random scalars below L and
-            decompressed keys (small-order ones included), compared through
-            compress. Tolerance: exact equality. A few rows against the
-            big-integer oracle.
+            B = 4096, at 8192 (verify_many's 5,000-item window) and at the
+            ragged sizes 1, 17 and 300: inv and pow_p58 on random carried
+            limbs plus the hostile-bounds rows (+-1023 per limb,
+            alternating) and zero; the ladder on random scalars below L and
+            decompressed keys (small-order ones included), with hostile rows
+            in place of some -A (not curve points). Tolerance: exact
+            equality of the raw limbs; at 4096 also after canon/compress and
+            against the big-integer oracle on a few curve rows.
 3. verify   the first main path: verify_many at every pad shape and at
             ragged sizes, on batches signed with the port's oracle that mix in
             invalid rows; verdicts equal ref.verify row for row, and a fixed
@@ -28,9 +31,11 @@ and no result line:
             4,096-item accumulation window (flush_items), which must merge
             requests. Verdicts correct, nothing served by the fallback; then
             one 5,000-item engine call across the 4,096 chunk boundary.
-5. timing   CUDA-event times of each kernel and of its plain version at
-            B = 4096, the bound of each, the verify_many rate at 4096 and the
-            service rates, beside the card's name and power limit.
+5. timing   CUDA-event times of each kernel's wrapper and of its plain
+            version at B = 4096, the bound of each (per pipe, below), the
+            time of ladder_digits (the ladder wrapper's one torch op), the
+            verify_many rate at 4096 and the service rates, beside the
+            card's name and power limit.
 
 Launch counts are set to 0 just before each path (verify_many; each service
 run, after its warmup; the chunked call) and read just after it: every
@@ -56,36 +61,38 @@ B = 4096
 VERIFY_SIZES = (16, 64, 256, 1024, 4096, 1, 17, 300, 5000)  # 5000 pads to 8192
 SEED = 0x5EED
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-INT32_RESULTS_PER_CLK_PER_SM = 64  # sm_90 int32 multiply-add throughput
+# sm_90, per SM and clock: 64 int32 results on the IMAD pipe (multiply,
+# multiply-add), 64 on the ALU pipe (and, shift, add), and one warp
+# instruction issued by each of the 4 schedulers (128 results).
+IMAD_PER_CLK_PER_SM = 64
+ALU_PER_CLK_PER_SM = 64
+SCHEDULER_PER_CLK_PER_SM = 128
 
-# int32 operations per item: the least the functions need in radix 2^8 with
-# the carry schedule of field.py (so the same integers and bounds proof).
-CARRY_OPS = 32 * 3 + 1  # per pass: mask, shift, add per limb; x38 into limb 0
-MUL_OPS = 1024 + 32 + 4 * CARRY_OPS  # products, lo + 38*hi fold, 4 passes
-SQR_OPS = 528 + 32 + 32 + 4 * CARRY_OPS  # 496 cross + 32 diagonal, 2*a_i, fold
-ADD_OPS = 32 + 2 * CARRY_OPS  # add/sub/neg, and mul_small<2> as an add
-
-
-def _chain_ladder_ops(sqr: int, mul: int, mul2: int) -> dict:
-    pdbl = 4 * sqr + 4 * mul + mul2 + 7 * ADD_OPS  # ed25519.point_double
-    padd = 9 * mul + mul2 + 8 * ADD_OPS  # ed25519.point_add
-    return {
-        "inv": 254 * sqr + 11 * mul,
-        "p58": 251 * sqr + 11 * mul,
-        # table: 1 doubling + 13 additions; then 128 steps of 2 dbl + 1 add
-        "ladder": pdbl + 13 * padd + 128 * (2 * pdbl + padd),
-    }
-
-
-OPS_PER_ITEM = _chain_ladder_ops(SQR_OPS, MUL_OPS, ADD_OPS)
-# What fe25519.cuh executes: a squaring is a full multiply, mul_small<2> a
-# 32-limb multiply with 4 carry passes. Printed beside the bound.
-KERNEL_OPS_PER_ITEM = _chain_ladder_ops(MUL_OPS, MUL_OPS, 32 + 4 * CARRY_OPS)
+# The least int32 operations per item, as (IMAD, ALU), in radix 2^8 with the
+# carry schedule of field.py (so the same integers and bounds proof). A
+# column's products accumulate in multiply-adds and the fold lo + 38 hi is
+# one more per column. A carry pass masks and shifts all 32 limbs and adds
+# the carries into limbs 1-31; 38 * carry + limb 0 is a multiply-add. Adds
+# may also issue to the IMAD pipe, which lowers no bound here: the
+# products alone are over half of all operations.
+CARRY_PASS = np.array([1, 32 * 2 + 31])
+MUL_OPS = np.array([1024 + 32, 0]) + 4 * CARRY_PASS
+SQR_OPS = np.array([528 + 32, 32]) + 4 * CARRY_PASS  # 496 cross + 32 diagonal; 32 doublings
+ADD_OPS = np.array([0, 32]) + 2 * CARRY_PASS  # add/sub/neg, and mul_small<2> as an add
+PDBL_OPS = 4 * SQR_OPS + 4 * MUL_OPS + 8 * ADD_OPS  # ed25519.point_double
+PADD_OPS = 9 * MUL_OPS + 9 * ADD_OPS  # ed25519.point_add
+OPS_PER_ITEM = {
+    "inv": 254 * SQR_OPS + 11 * MUL_OPS,
+    "p58": 251 * SQR_OPS + 11 * MUL_OPS,
+    # table: 1 doubling + 13 additions; then 128 steps of 2 dbl + 1 add
+    "ladder": PDBL_OPS + 13 * PADD_OPS + 128 * (2 * PDBL_OPS + PADD_OPS),
+}
 BYTES_PER_ITEM = {  # each input read once, each output written once
     "inv": 2 * 32 * 4,
     "p58": 2 * 32 * 4,
     "ladder": (128 + 4 * 32 + 4 * 32) * 4,
 }
+KERNEL_SIZES = (4096, 8192, 1, 17, 300)  # 8192: verify_many's 5,000-item window
 SOURCES = {
     "inv": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:184"),
     "p58": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:190"),
@@ -202,75 +209,91 @@ def phase_env(torch, K, card: str) -> dict:
     for name, regs in info["kernels"].items():
         check("registers" in regs, f"no ptxas report for {name}")
     emit("env", **env)
+    check(info["kernels"]["ladder"].get("spill_store_bytes") == 0, "the ladder kernel spills")
     return env
 
 
-def phase_kernels(torch, F, E, K, ref, rng, card: str) -> dict:
-    dev = torch.device("cuda")
-    errs = {}
-    # Chains: random carried limbs + hostile bounds + zero + small values.
-    x = rng.integers(-(2**9) + 1, 2**9, size=(B, F.NLIMBS)).astype(np.int32)
-    x[0] = 1023
-    x[1] = -1023
-    x[2] = [1023 if i % 2 else -1023 for i in range(F.NLIMBS)]
-    x[3] = 0
+HOSTILE = np.array([[1023] * 32, [-1023] * 32, [1023 if i % 2 else -1023 for i in range(32)], [0] * 32],
+                   np.int32)
+
+
+def _chain_rows(F, rng, n: int) -> np.ndarray:
+    """Random carried limbs, the hostile rows, zero, 1 and p - 1 first."""
+    x = rng.integers(-(2**9) + 1, 2**9, size=(max(n, 6), F.NLIMBS)).astype(np.int32)
+    x[:4] = HOSTILE
     x[4] = F.limbs_const(1)
     x[5] = F.limbs_const(F.P - 1)
-    xt = torch.from_numpy(x).to(dev)
-    for name, fn, plain, expo in (
-        ("inv", K.inv, K.inv_plain, F.P - 2),
-        ("p58", K.pow_p58, K.pow_p58_plain, (F.P - 5) // 8),
-    ):
-        got, want = fn(xt), plain(xt)
-        torch.cuda.synchronize()
-        raw_equal = bool(torch.equal(got, want))
-        gc, wc = F.canon(got), F.canon(want)
-        err = int((gc - wc).abs().max().item())
-        oracle_rows = 8
-        oracle_ok = all(
-            F.limbs_to_int(gc[i]) == pow(F.limbs_to_int(x[i]) % F.P, expo, F.P)
-            for i in range(oracle_rows)
-        )
-        emit("kernels", kernel=name, batch=B, raw_limbs_equal=raw_equal,
-             canon_equal=err == 0, max_abs_err=err, oracle_rows=oracle_rows,
-             oracle_ok=oracle_ok, card=card)
-        check(err == 0 and oracle_ok, f"{name} kernel disagrees with its plain version")
-        errs[name] = err
-    # Ladder: random scalars below L, decompressed keys (small-order too).
-    seeds = [rng.bytes(32) for _ in range(32)]
-    keys = [ref.public_key(s) for s in seeds] + SMALL_ORDER
-    pubs = np.stack([np.frombuffer(keys[i % len(keys)], np.uint8) for i in range(B)])
-    s_int = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(B)]
-    h_int = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(B)]
-    s_int[0] = h_int[0] = 0  # identity accumulator through compress
-    s_int[1] = 0
-    h_int[2] = 0
+    return x[:n]
+
+
+def phase_kernels(torch, F, E, K, ref, rng, card: str) -> dict:
+    """Every kernel against its plain version at KERNEL_SIZES, raw limbs."""
+    dev = torch.device("cuda")
+    errs = {name: 0 for name in K.KERNELS}
+    keys = [ref.public_key(rng.bytes(32)) for _ in range(32)] + SMALL_ORDER  # rows 32-35: small order
+    ok, key_pts = E.decompress(torch.from_numpy(np.stack([np.frombuffer(k, np.uint8) for k in keys])).to(dev))
+    check(bool(ok.all()), "test keys failed to decompress")
+    key_neg = E.point_neg(key_pts)
+    hostile_rows = (3, 5, 7, 9)  # -A replaced by a hostile row (all four coordinates)
 
     def bits(vals):
         raw = np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint8) for v in vals])
         return F.scalar_bits(F.bytes_to_limbs(torch.from_numpy(raw).to(dev)))
 
-    ok, a_pt = E.decompress(torch.from_numpy(pubs).to(dev))
-    check(bool(ok.all()), "test keys failed to decompress")
-    a_neg = E.point_neg(a_pt)
-    sb, hb = bits(s_int), bits(h_int)
-    got = K.ladder(sb, hb, a_neg)
-    want = K.ladder_plain(sb, hb, a_neg)
-    torch.cuda.synchronize()
-    raw_equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-    enc_got, enc_want = E.compress(got), E.compress(want)
-    err = int((enc_got.int() - enc_want.int()).abs().max().item())
-    oracle_rows = list(range(4)) + [B - 1 - k for k in range(len(SMALL_ORDER))]
-    oracle_ok = True
-    for i in oracle_rows:
-        ax, ay = ref.point_decompress(keys[i % len(keys)])
-        expect = ref.point_add(ref.scalar_mult(s_int[i], ref.BASE), ref.scalar_mult(h_int[i], ((-ax) % F.P, ay)))
-        oracle_ok &= bytes(enc_got[i].cpu().numpy()) == ref.point_compress(expect)
-    emit("kernels", kernel="ladder", batch=B, raw_limbs_equal=raw_equal,
-         compress_equal=err == 0, max_abs_err=err, oracle_rows=len(oracle_rows),
-         oracle_ok=oracle_ok, card=card)
-    check(err == 0 and oracle_ok, "ladder kernel disagrees with its plain version")
-    errs["ladder"] = err
+    for n in KERNEL_SIZES:
+        x = _chain_rows(F, rng, n)
+        xt = torch.from_numpy(x).to(dev)
+        for name, fn, plain, expo in (
+            ("inv", K.inv, K.inv_plain, F.P - 2),
+            ("p58", K.pow_p58, K.pow_p58_plain, (F.P - 5) // 8),
+        ):
+            got, want = fn(xt), plain(xt)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max().item())
+            more = {}
+            if n == B:
+                gc = F.canon(got)
+                more["canon_equal"] = torch.equal(gc, F.canon(want))
+                more["oracle_ok"] = all(
+                    F.limbs_to_int(gc[i]) == pow(F.limbs_to_int(x[i]) % F.P, expo, F.P) for i in range(8)
+                )
+            emit("kernels", kernel=name, batch=n, raw_limbs_equal=err == 0, max_abs_err=err, **more,
+                 card=card)
+            check(err == 0 and all(more.values()), f"{name} kernel disagrees with its plain version at {n}")
+            errs[name] = max(errs[name], err)
+        rows = torch.arange(n, device=dev) % len(keys)
+        a_neg = tuple(c[rows] for c in key_neg)
+        hostile = [r for r in hostile_rows if r < n]
+        if hostile:
+            for c in a_neg:
+                c[hostile] = torch.from_numpy(HOSTILE[: len(hostile)]).to(dev)
+        s_int = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(n)]
+        h_int = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(n)]
+        s_int[0] = h_int[0] = 0  # identity accumulator through compress
+        s_int[1 % n] = 0
+        h_int[2 % n] = 0
+        sb, hb = bits(s_int), bits(h_int)
+        got = K.ladder(sb, hb, a_neg)
+        want = K.ladder_plain(sb, hb, a_neg)
+        torch.cuda.synchronize()
+        err = max(int((g - w).abs().max().item()) for g, w in zip(got, want))
+        more = {"hostile_rows": len(hostile)}
+        if n == B:
+            enc_got = E.compress(got)
+            more["compress_equal"] = torch.equal(enc_got, E.compress(want))
+            oracle_rows = [0, 1, 2, 4, 32, 33, 34, 35]  # curve rows; 32-35 small-order keys
+            oracle_ok = True
+            for i in oracle_rows:
+                ax, ay = ref.point_decompress(keys[i])
+                expect = ref.point_add(ref.scalar_mult(s_int[i], ref.BASE),
+                                       ref.scalar_mult(h_int[i], ((-ax) % F.P, ay)))
+                oracle_ok &= bytes(enc_got[i].cpu().numpy()) == ref.point_compress(expect)
+            more.update(oracle_rows=len(oracle_rows), oracle_ok=oracle_ok)
+        emit("kernels", kernel="ladder", batch=n, raw_limbs_equal=err == 0, max_abs_err=err, **more,
+             card=card)
+        check(err == 0 and more.get("compress_equal", True) and more.get("oracle_ok", True),
+              f"ladder kernel disagrees with its plain version at {n}")
+        errs["ladder"] = max(errs["ladder"], err)
     return errs
 
 
@@ -389,7 +412,7 @@ def phase_timing(torch, F, E, K, batch, pool, rng, card, env) -> dict:
     a_neg = E.point_neg(a_pt)
     sb = torch.from_numpy(rng.integers(0, 2, size=(B, 256)).astype(np.int32)).to(dev)
     hb = torch.from_numpy(rng.integers(0, 2, size=(B, 256)).astype(np.int32)).to(dev)
-    rate = INT32_RESULTS_PER_CLK_PER_SM * env["sms"] * env["sm_clock_max_mhz"] * 1e6
+    sm_clk = env["sms"] * env["sm_clock_max_mhz"] * 1e6  # SM-clocks per second
     out = {}
     for name, fn, plain, iters, plain_iters in (
         ("inv", lambda: K.inv(x), lambda: K.inv_plain(x), 20, 3),
@@ -398,16 +421,22 @@ def phase_timing(torch, F, E, K, batch, pool, rng, card, env) -> dict:
     ):
         ms = cuda_ms(fn, iters, warmup=2)
         plain_ms = cuda_ms(plain, plain_iters, warmup=1)
-        ops = OPS_PER_ITEM[name] * B
+        imad, alu = (int(v) for v in OPS_PER_ITEM[name] * B)
         nbytes = BYTES_PER_ITEM[name] * B
-        ops_ms, bytes_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "int32_ops": ops, "bytes": nbytes,
-            "kernel_int32_ops": KERNEL_OPS_PER_ITEM[name] * B,
-            "kernel_ops_ms": KERNEL_OPS_PER_ITEM[name] * B / rate * 1e3,
+        limits = {  # ms of each limit; the bound is the largest
+            "imad": imad / (IMAD_PER_CLK_PER_SM * sm_clk) * 1e3,
+            "alu": alu / (ALU_PER_CLK_PER_SM * sm_clk) * 1e3,
+            "schedulers": (imad + alu) / (SCHEDULER_PER_CLK_PER_SM * sm_clk) * 1e3,
+            "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
         }
+        bound = max(limits.values())
+        out[name] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if limits["bytes"] == bound else "operations",
+            "limits_ms": limits, "imad_ops": imad, "alu_ops": alu, "bytes": nbytes,
+        }
+        if name == "ladder":
+            out[name]["digits_ms"] = cuda_ms(lambda: K.ladder_digits(sb, hb), 20, warmup=2)
         emit("timing", kernel=name, batch=B, **out[name], card=card)
     items = [pool[i % len(pool)] for i in range(B)]
     batch.verify_many(items)

@@ -13,10 +13,12 @@ Each wrapper takes its plain PyTorch version (``inv_plain``,
 ``pow_p58_plain``, ``ladder_plain``: the ports of ``field.inv``,
 ``field.pow_p58`` and ``ed25519.shamir_ladder``) **only** for a tensor on
 the CPU. For a CUDA tensor it launches its kernel or raises; nothing falls
-back. Inputs are checked (device, dtype, shape, contiguity), transposed to
-the kernels' limb-major (32, n) layout, and launched on the calling
-thread's current stream (the verify service runs two launch threads, each
-on its own stream). ``LAUNCHES`` counts kernel launches per wrapper.
+back. Inputs are checked (device, dtype, shape, contiguity, 16-byte
+alignment) and handed to the kernels in their own batch-major (..., 32)
+layout, with no transposes; a group of lanes of one warp owns each item
+(``csrc/fe25519.cuh``). Kernels launch on the calling thread's current
+stream (the verify service runs two launch threads, each on its own
+stream). ``LAUNCHES`` counts kernel launches per wrapper.
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use, one
 process per source started together, into plain-C shared libraries loaded
@@ -180,6 +182,8 @@ def _check(x: torch.Tensor, what: str, last: int) -> None:
         raise ValueError(f"{what}: expected shape (..., {last}), got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: expected a 16-byte aligned tensor")
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -189,11 +193,6 @@ def _raise_on(rc: int, name: str) -> None:
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _limb_major(x: torch.Tensor, g: int, width: int) -> torch.Tensor:
-    """(..., width) -> (width, g) contiguous: the kernels' boundary layout."""
-    return x.reshape(g, width).t().contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -215,11 +214,10 @@ def _run_chain(name: str, z: torch.Tensor) -> torch.Tensor:
     _check(z, name, F.NLIMBS)
     g = z.numel() // F.NLIMBS
     with torch.cuda.device(z.device):
-        zt = _limb_major(z, g, F.NLIMBS)
-        out = torch.empty_like(zt)
-        _raise_on(_entry(name)(zt.data_ptr(), out.data_ptr(), g, _stream(z.device)), name)
+        out = torch.empty_like(z)
+        _raise_on(_entry(name)(z.data_ptr(), out.data_ptr(), g, _stream(z.device)), name)
         _count(name)
-        return out.t().contiguous().reshape(z.shape)
+        return out
 
 
 def inv(z: torch.Tensor) -> torch.Tensor:
@@ -294,14 +292,13 @@ def ladder(s_bits: torch.Tensor, h_bits: torch.Tensor, a_neg):
         consts = _consts_on.get(dev)
         if consts is None:
             consts = _consts_on.setdefault(dev, torch.from_numpy(LADDER_CONSTS).to(dev))
-        digits = ladder_digits(s_bits.reshape(g, 256), h_bits.reshape(g, 256)).t().contiguous()
-        coords = [_limb_major(c, g, F.NLIMBS) for c in a_neg]
-        outs = [torch.empty((F.NLIMBS, g), dtype=torch.int32, device=dev) for _ in range(4)]
-        table = torch.empty((16 * 4 * F.NLIMBS * g,), dtype=torch.int32, device=dev)
+        digits = ladder_digits(s_bits.reshape(g, 256), h_bits.reshape(g, 256))  # (g, 128)
+        outs = [torch.empty_like(c) for c in a_neg]
+        table = torch.empty((g, 16, 4, F.NLIMBS), dtype=torch.int32, device=dev)
         rc = _entry("ladder")(
-            consts.data_ptr(), digits.data_ptr(), *(c.data_ptr() for c in coords),
+            consts.data_ptr(), digits.data_ptr(), *(c.data_ptr() for c in a_neg),
             *(o.data_ptr() for o in outs), table.data_ptr(), g, _stream(dev),
         )
         _raise_on(rc, "ladder")
         _count("ladder")
-        return tuple(o.t().contiguous().reshape(lead + (F.NLIMBS,)) for o in outs)
+        return tuple(outs)

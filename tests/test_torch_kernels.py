@@ -4,12 +4,20 @@
   big-integer [S]B + [h](-A) from the port's oracle, compared compressed;
   the wrappers take the plain version only for CPU tensors and never fall
   back for anything else.
+- tier-1: a numpy model of how the CUDA kernels split a field multiply over
+  a group of k lanes (``csrc/fe25519.cuh``): each lane's output columns
+  from the extended operand, the dedicated squaring's paired columns, and
+  the per-lane carry with the lane k-1 -> lane 0 (x 38) wrap, against
+  ``field.mul`` and ``field.carry`` raw limb for raw limb, every partial
+  sum inside int32.
 - slow: ladder_plain against the JAX shamir_ladder and against the Pallas
   ladder in interpret mode (narrow tiles, as tests/test_pallas_kernels.py).
-- cuda: each CUDA kernel against its plain version on the card (skips on a
-  machine without one).
+- cuda: each CUDA kernel against its plain version on the card, raw limbs,
+  at ragged sizes and on the hostile-bounds rows (skips on a machine
+  without one).
 
-Tolerance: exact equality (limbs after canon, compressed bytes)."""
+Tolerance: exact equality (raw limbs, and compressed bytes against the
+big-integer oracle)."""
 
 import os
 
@@ -99,6 +107,138 @@ def test_ladder_digits_are_the_pallas_schedule():
         np.testing.assert_array_equal(dig[:, k], want.numpy())
 
 
+# ---------------------------------------------------------------------------
+# The lane split of csrc/fe25519.cuh, modelled in numpy (int64, so that an
+# int32 overflow of the kernels' arithmetic would show instead of wrapping).
+# ---------------------------------------------------------------------------
+
+_LANE_WIDTHS = (4, 8, 16)  # the kernels use 8; the split keeps the integers at each width
+
+
+def _hostile_rows():
+    """+-1023 per limb, alternating, and zero: the loosest multiply inputs."""
+    return np.stack(
+        [
+            np.full(F.NLIMBS, 1023),
+            np.full(F.NLIMBS, -1023),
+            np.array([1023 if i % 2 else -1023 for i in range(F.NLIMBS)]),
+            np.zeros(F.NLIMBS, np.int64),
+        ]
+    ).astype(np.int64)
+
+
+def _in_int32(x):
+    assert np.all((x >= -(2**31)) & (x < 2**31)), "an int32 intermediate would overflow"
+    return x
+
+
+def _slot(a):
+    """A group's exchange slot: words [0, 32) = 38 a (the extended operand
+    a'_k = 38 a_{k+32} for k < 0), [32, 64) = a (a'_k = a_k)."""
+    return np.concatenate([_in_int32(38 * a), a], axis=-1)
+
+
+def _model_mul_columns(a, b, k):
+    """Lane j of k owns columns c0 .. c0 + 32/k - 1 (c0 = j * 32/k) and
+    forms column c0 + t = sum_m b_m a'_{c0+t-m}, m = 0 .. 31 in order, from
+    the window W[q] = a'_{c0+q-32} of the slot."""
+    lpl = F.NLIMBS // k
+    slot = _slot(a)
+    cols = np.empty_like(a)
+    for j in range(k):
+        c0 = j * lpl
+        w = slot[:, c0 : c0 + 32 + lpl]
+        for t in range(lpl):
+            col = np.zeros(len(a), np.int64)
+            for m in range(32):
+                col = _in_int32(col + _in_int32(b[:, m] * w[:, t - m + 32]))
+            cols[:, c0 + t] = col
+    return cols
+
+
+def _model_sq_columns(a, k):
+    """The dedicated squaring: with h0 = c0 / 2 the lane reads
+    V[r] = a'_{h0-16+r}; column n = c0 + t (u = t // 2) is
+    2 sum_{q=1}^{15} V[u+q+16] V[u-q+16] + V[u+16]^2 + V[u+32] V[u] for even
+    n and 2 sum_{q=1}^{16} V[u+q+16] V[u+17-q] for odd n: cross terms
+    doubled plus the diagonal, 528 products for the 32 columns."""
+    lpl = F.NLIMBS // k
+    slot = _slot(a)
+    cols = np.empty_like(a)
+    products = 0
+    for j in range(k):
+        c0 = j * lpl
+        v = slot[:, c0 // 2 + 16 : c0 // 2 + 48 + lpl // 2]
+        for t in range(lpl):
+            u = t // 2
+            s = np.zeros(len(a), np.int64)
+            if t % 2 == 0:
+                for q in range(1, 16):
+                    s = _in_int32(s + _in_int32(v[:, u + q + 16] * v[:, u - q + 16]))
+                col = _in_int32(_in_int32(2 * s) + _in_int32(v[:, u + 16] * v[:, u + 16]))
+                col = _in_int32(col + _in_int32(v[:, u + 32] * v[:, u]))
+                products += 17
+            else:
+                for q in range(1, 17):
+                    s = _in_int32(s + _in_int32(v[:, u + q + 16] * v[:, u + 17 - q]))
+                col = _in_int32(2 * s)
+                products += 16
+            cols[:, c0 + t] = col
+    assert products == 528
+    return cols
+
+
+def _model_lane_carry(x, k, passes):
+    """Each pass: every limb keeps its low byte and takes the carry of the
+    limb below; a lane's first limb gets it from the previous lane's top
+    limb (a shuffle), and lane 0 from lane k - 1's times 38."""
+    lpl = F.NLIMBS // k
+    for _ in range(passes):
+        hi = x >> 8
+        out = x & 0xFF
+        for j in range(k):
+            c0 = j * lpl
+            incoming = hi[:, (c0 - 1) % F.NLIMBS]
+            out[:, c0] += 38 * incoming if j == 0 else incoming
+            for t in range(1, lpl):
+                out[:, c0 + t] += hi[:, c0 + t - 1]
+        x = _in_int32(out)
+    return x
+
+
+def _model_operands():
+    """(a, b): every pair of hostile rows, random carried limbs, and random
+    limbs anywhere in [-1023, 1023]."""
+    h = _hostile_rows()
+    a = [np.repeat(h, len(h), axis=0), _RNG.integers(-(2**9) + 1, 2**9, size=(16, F.NLIMBS))]
+    b = [np.tile(h, (len(h), 1)), _RNG.integers(-(2**9) + 1, 2**9, size=(16, F.NLIMBS))]
+    a.append(_RNG.integers(-1023, 1024, size=(16, F.NLIMBS)))
+    b.append(_RNG.integers(-1023, 1024, size=(16, F.NLIMBS)))
+    return np.concatenate(a).astype(np.int64), np.concatenate(b).astype(np.int64)
+
+
+@pytest.mark.parametrize("k", _LANE_WIDTHS)
+def test_lane_split_multiply_and_square_equal_field_mul(k):
+    a, b = _model_operands()
+    want_ab = F.mul(torch.from_numpy(a.astype(np.int32)), torch.from_numpy(b.astype(np.int32)))
+    want_aa = F.mul(torch.from_numpy(a.astype(np.int32)), torch.from_numpy(a.astype(np.int32)))
+    got_ab = _model_lane_carry(_model_mul_columns(a, b, k), k, 4)
+    np.testing.assert_array_equal(got_ab, want_ab.numpy())
+    sq_cols = _model_sq_columns(a, k)
+    np.testing.assert_array_equal(sq_cols, _model_mul_columns(a, a, k))  # same column integers
+    np.testing.assert_array_equal(_model_lane_carry(sq_cols, k, 4), want_aa.numpy())
+
+
+@pytest.mark.parametrize("k", _LANE_WIDTHS)
+def test_lane_carry_equals_field_carry(k):
+    x = _RNG.integers(-(2**30), 2**30, size=(64, F.NLIMBS)).astype(np.int64)
+    x[:4] = np.stack([np.full(F.NLIMBS, 2**31 - 1), np.full(F.NLIMBS, -(2**31)),
+                      _hostile_rows()[2], np.zeros(F.NLIMBS)])
+    for passes in (2, 4):
+        want = F.carry(torch.from_numpy(x.astype(np.int32)), passes=passes).numpy()
+        np.testing.assert_array_equal(_model_lane_carry(x, k, passes), want)
+
+
 @pytest.mark.slow
 def test_ladder_plain_matches_jax_shamir_ladder_and_pallas_ladder():
     import jax
@@ -126,33 +266,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
+_CARD_SIZES = (1, 17, 256)  # ragged: fewer items than one block's groups, then several blocks
+
+
 @pytest.mark.cuda
 def test_chain_kernels_match_plain_on_the_card(cuda_device):
     x = np.concatenate(
-        [
-            np.full((1, F.NLIMBS), 1023, np.int32),
-            np.full((1, F.NLIMBS), -1023, np.int32),
-            np.array([[1023 if i % 2 else -1023 for i in range(F.NLIMBS)]], np.int32),
-            np.zeros((1, F.NLIMBS), np.int32),
-            _RNG.integers(-(2**9) + 1, 2**9, size=(252, F.NLIMBS)).astype(np.int32),
-        ]
-    )
-    xt = torch.from_numpy(x).to(cuda_device)
-    for kernel, plain in ((K.inv, K.inv_plain), (K.pow_p58, K.pow_p58_plain)):
-        n = dict(K.LAUNCHES)
-        got = kernel(xt)
-        torch.cuda.synchronize()
-        assert sum(K.LAUNCHES.values()) == sum(n.values()) + 1
-        assert torch.equal(F.canon(got), F.canon(plain(xt)))
+        [_hostile_rows(), _RNG.integers(-(2**9) + 1, 2**9, size=(252, F.NLIMBS))]
+    ).astype(np.int32)
+    for n in _CARD_SIZES:
+        xt = torch.from_numpy(x[:n].copy()).to(cuda_device)
+        for kernel, plain in ((K.inv, K.inv_plain), (K.pow_p58, K.pow_p58_plain)):
+            before = sum(K.LAUNCHES.values())
+            got = kernel(xt)
+            torch.cuda.synchronize()
+            assert sum(K.LAUNCHES.values()) == before + 1
+            assert torch.equal(got, plain(xt)), (kernel.__name__, n)  # raw limbs
 
 
 @pytest.mark.cuda
 def test_ladder_kernel_matches_plain_on_the_card(cuda_device):
+    """Raw limbs at ragged sizes; compressed points against the oracle on
+    curve rows. The hostile rows replace -A with limbs that are not a
+    curve point (+-1023 per limb, alternating, zero): raw limbs only."""
     pubs, s, h = _ladder_case()
-    sb, hb, a_neg = _ladder_inputs(pubs, s, h, device=cuda_device)
-    got = E.compress(K.ladder(sb, hb, a_neg))
-    want = E.compress(K.ladder_plain(sb, hb, a_neg))
+    for n in (1, 17):
+        pick = [i % len(pubs) for i in range(n)]
+        sb, hb, a_neg = _ladder_inputs([pubs[i] for i in pick], [s[i] for i in pick],
+                                       [h[i] for i in pick], device=cuda_device)
+        got = K.ladder(sb, hb, a_neg)
+        want = K.ladder_plain(sb, hb, a_neg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), n
+        enc = E.compress(got)
+        for row, i in enumerate(pick):
+            assert bytes(enc[row].cpu().numpy()) == _oracle(pubs[i], s[i], h[i]), (n, row)
+    hostile = torch.from_numpy(_hostile_rows().astype(np.int32)).to(cuda_device)
+    bad = tuple(torch.cat([c[: len(hostile)], hostile]) for c in a_neg)
+    m = len(bad[0])
+    sb2, hb2 = sb[:1].expand(m, 256).contiguous(), hb[:1].expand(m, 256).contiguous()
+    got = K.ladder(sb2, hb2, bad)
+    want = K.ladder_plain(sb2, hb2, bad)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    for i, pub in enumerate(pubs):
-        assert bytes(got[i].cpu().numpy()) == _oracle(pub, s[i], h[i]), i
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
