@@ -31,15 +31,37 @@ and no result line:
             4,096-item accumulation window (flush_items), which must merge
             requests. Verdicts correct, nothing served by the fallback; then
             one 5,000-item engine call across the 4,096 chunk boundary.
-5. timing   CUDA-event times of each kernel's wrapper and of its plain
+5. parallel the third main path, pbft_tpu_torch.parallel, on B = 4,096
+            windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
+            replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
+            R = 132, 4 pad rows at round id R, threshold 21). In each, one
+            round keeps exactly its threshold of valid rows and one falls a
+            row short; the state digest starts at 2^31 - 2, so the fold
+            wraps in int32. (a) quorum_certify and round_step on a mesh of
+            the local cards: verdicts equal the oracle row for row; counts,
+            certified and the state equal a numpy model of the JAX
+            semantics (round ids clipped to [0, R], an int32 running sum).
+            (b) The same on a mesh of two shards on one card: bit-equal to
+            (a). (c) Two processes on gloo, both on that card, each
+            verifying its rows (partition_items): counts and certified equal
+            on both and equal to (a). (d) The daemon over every local card:
+            its status reports torch.cuda.device_count() devices and it
+            serves the oracle's verdicts. (e) Per-window times (host clock
+            after a synchronize, paths timed in turns) of quorum_certify in
+            (a), (b) and (c), of round_step, and of verify_many on the same
+            window; then one window of verify_many, (a) and (b) under
+            torch.profiler (aten events, device busy ms, CUDA runtime
+            calls), a diagnostic only.
+6. timing   CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), the
             verify_many rate at 4096 and the service rates, beside the
             card's name and power limit.
 
 Launch counts are set to 0 just before each path (verify_many; each service
-run, after its warmup; the chunked call) and read just after it: every
-kernel must have launched exactly once per window that path formed.
+run, after its warmup; the chunked call; each parallel path, in each of its
+processes) and read just after it: every kernel must have launched exactly
+once per window per shard that the path formed.
 
 The line before the last is the kernel table ({"kernels": [...]}); the last
 line is {"ok": true, "device": {...}}.
@@ -49,11 +71,13 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import socket
 import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 
@@ -98,6 +122,13 @@ SOURCES = {
     "p58": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:190"),
     "ladder": ("pbft_tpu_torch/crypto/csrc/ladder.cu", "pbft_tpu/crypto/pallas_kernels.py:210"),
 }
+
+
+# The parallel phase: f -> replicas n = 3f + 1. A window holds R = B // n
+# rounds of n COMMIT rows; a round certifies at 2f + 1 valid ones.
+CLUSTERS = {1: 4, 10: 31}
+STATE0 = np.full(8, 2**31 - 2, np.int32)
+REPS = 4  # timed windows per path
 
 
 class PhaseFailed(Exception):
@@ -297,11 +328,13 @@ def phase_kernels(torch, F, E, K, ref, rng, card: str) -> dict:
     return errs
 
 
-def check_launches(K, path: str, windows: int) -> dict:
-    """Read the counts after a path; each kernel launches once per window."""
-    got = dict(K.LAUNCHES)
-    emit("launches", path=path, windows=windows, **got)
-    check(all(got[k] == windows for k in K.KERNELS), f"{path}: {got} launches for {windows} windows")
+def check_launches(K, path: str, windows: int, shards: int = 1, got=None, **labels) -> dict:
+    """Read the counts after a path (or take ``got``, read in another
+    process); each kernel launches once per window per shard."""
+    got = dict(K.LAUNCHES) if got is None else got
+    emit("launches", path=path, **labels, windows=windows, shards=shards, **got)
+    check(all(got[k] == windows * shards for k in K.KERNELS),
+          f"{path}: {got} launches for {windows} windows of {shards} shards")
     return got
 
 
@@ -347,7 +380,7 @@ def run_service(VS, K, pool, want, card: str, path: str, **daemon_kwargs) -> tup
         daemon.start(wait_ready=True, timeout=600)
         warm_s = time.perf_counter() - t0
         st = VS.probe_status(daemon.address)
-        check(st == (VS.STATE_READY, 1, 5), f"daemon status {st}")
+        check(st == (VS.STATE_READY, daemon.engine.device_count, 5), f"daemon status {st}")
         K.reset_launches()  # after the warmup's one launch per shape
         errors = []
         bad = []
@@ -387,7 +420,7 @@ def run_service(VS, K, pool, want, card: str, path: str, **daemon_kwargs) -> tup
         check(not errors and not bad, "service verdicts wrong or a client failed")
         check(js["requests"] == 32, f"{js['requests']} requests reached the service")
         check(js["fallback_items"] == 0, "the fallback served traffic")
-        return result, check_launches(K, path, js["launches"])
+        return result, check_launches(K, path, js["launches"], daemon.engine.device_count)
     finally:
         daemon.stop()
 
@@ -401,7 +434,277 @@ def run_chunked(VS, K, pool, want, card: str) -> dict:
     ok = engine.verify(big) == [want[i % len(pool)] for i in range(5000)]
     emit("service", path="engine_chunked", items=len(big), correct=ok, card=card)
     check(ok, "chunked verify across the 4096 boundary is wrong")
-    return check_launches(K, "engine_chunked", 2)
+    return check_launches(K, "engine_chunked", 2, engine.device_count)
+
+
+# ---------------------------------------------------------------------------
+# The parallel phase.
+# ---------------------------------------------------------------------------
+
+
+def quorum_window(batch, pool, want, f: int, rng) -> dict:
+    """One B-row window of COMMIT signatures of an n = 3f + 1 cluster: R
+    rounds of n rows drawn from the pool's valid items, then pad rows at
+    round id R. Round 1 keeps exactly 2f + 1 valid rows (it certifies),
+    round 2 keeps 2f (it does not), and 8 more rounds each lose one row."""
+    n = CLUSTERS[f]
+    R = B // n
+    thr = 2 * f + 1
+    good = np.flatnonzero(want)
+    bad = np.flatnonzero(~np.asarray(want))
+    pick = rng.choice(good, size=(R, n))
+    pick[1, : n - thr] = rng.choice(bad, size=n - thr)
+    pick[2, : n - thr + 1] = rng.choice(bad, size=n - thr + 1)
+    for r in rng.choice(np.arange(3, R), size=min(8, R - 3), replace=False):
+        pick[r, 0] = rng.choice(bad)
+    items = [pool[i] for i in pick.ravel()]
+    pubs, msgs, sigs, _ = batch.pad_batch(items, B)
+    round_ids = np.full(B, R, np.int32)
+    round_ids[: R * n] = np.repeat(np.arange(R, dtype=np.int32), n)
+    oracle = np.ones(B, bool)  # pad rows hold the known-good pad triple
+    oracle[: R * n] = np.asarray(want)[pick.ravel()]
+    return {"f": f, "R": R, "items": items, "args": (pubs, msgs, sigs, round_ids, np.full(R, thr, np.int32)),
+            "oracle": oracle}
+
+
+def quorum_model(valid, round_ids, thresholds):
+    """The JAX quorum_certify on verdicts, in numpy: ids clipped to [0, R],
+    segment R dropped."""
+    R = len(thresholds)
+    counts = np.zeros(R + 1, np.int32)
+    np.add.at(counts, np.clip(round_ids.astype(np.int32), 0, R), valid.astype(np.int32))
+    return counts[:R], counts[:R] >= thresholds
+
+
+def step_model(state, counts, certified):
+    """The JAX round_step fold in numpy: an int32 running sum (it wraps),
+    the last 8, mod 2^31 - 1 (floored)."""
+    contrib = np.where(certified, counts, 0).astype(np.int32)
+    run = np.cumsum(np.concatenate([state.astype(np.int32), contrib]), dtype=np.int32)
+    return run[-len(state):] % np.int32(2**31 - 1)
+
+
+def host_ms(torch, fn) -> float:
+    """Milliseconds of one call on the host clock, ended by a synchronize (a
+    window's own host work is most of its time)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def turns_ms(torch, fns: dict, reps: int = REPS) -> dict:
+    """Mean ms per call of each path, timed in turns (forward, then
+    backward order, ...) so that drift over the run falls on all alike."""
+    total = dict.fromkeys(fns, 0.0)
+    for rep in range(reps):
+        for name in (list(fns) if rep % 2 == 0 else list(fns)[::-1]):
+            total[name] += host_ms(torch, fns[name])
+    return {name: t / reps for name, t in total.items()}
+
+
+def profile_window(torch, fn) -> dict:
+    """One call under torch.profiler (host and device activity): the aten
+    events it recorded (nested calls included), the device's busy ms (kernel time summed) beside the
+    call's wall ms under the profiler, and the CUDA runtime calls that took
+    the most host time. A diagnostic: a profiler that cannot trace here is
+    reported, not a failure of the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+    except Exception as e:  # noqa: BLE001 - reported in the line, see above
+        return {"profile_error": f"{type(e).__name__}: {e}"}
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    runtime = sorted((e for e in events if e.key.startswith("cuda")), key=lambda e: -e.cpu_time_total)
+    return {
+        "aten_events": sum(e.count for e in events if e.key.startswith("aten::")),
+        "wall_ms_profiled": wall_ms,
+        "device_busy_ms": sum(device_us(e) for e in events) / 1e3,
+        "runtime_calls": {e.key: [e.count, e.cpu_time_total / 1e3] for e in runtime[:6]},
+    }
+
+
+def run_mesh(torch, P, K, mesh, path: str, windows, card: str) -> dict:
+    """quorum_certify and round_step on one mesh at every window, checked
+    against the oracle and the numpy model; launches once per window per
+    shard. Returns the results and the two callables per window."""
+    out = {}
+    certify = {w["f"]: P.quorum_certify(mesh, w["R"]) for w in windows}
+    step = {w["f"]: P.round_step(mesh, w["R"]) for w in windows}
+    K.reset_launches()
+    for w in windows:
+        res = certify[w["f"]](*w["args"])
+        state, sres = step[w["f"]](STATE0, *w["args"])
+        got = {k: getattr(res, k).cpu().numpy() for k in ("valid", "counts", "certified")}
+        got["state"] = state.cpu().numpy()
+        counts, certified = quorum_model(w["oracle"], w["args"][3], w["args"][4])
+        want_state = step_model(STATE0, counts, certified)
+        ok = {
+            "valid_equal_oracle": np.array_equal(got["valid"], w["oracle"]),
+            "counts_equal_model": np.array_equal(got["counts"], counts) and got["counts"].dtype == np.int32,
+            "certified_equal_model": np.array_equal(got["certified"], certified),
+            "state_equal_model": np.array_equal(got["state"], want_state) and got["state"].dtype == np.int32,
+            "step_equal_certify": all(torch.equal(getattr(res, k), getattr(sres, k))
+                                      for k in ("valid", "counts", "certified")),
+            "planted_rounds": bool(certified[1]) and not bool(certified[2]),
+            "state_wrapped": bool((np.cumsum(np.concatenate([STATE0, np.where(certified, counts, 0)])
+                                             .astype(np.int64)) > 2**31 - 1).any()),
+        }
+        emit("parallel", path=path, f=w["f"], rounds=w["R"], shards=len(mesh.devices),
+             rejected=int((~w["oracle"]).sum()), certified_rounds=int(certified.sum()), **ok,
+             state=got["state"].tolist(), card=card)
+        check(all(ok.values()), f"{path} f={w['f']}: {ok}")
+        out[w["f"]] = got
+    out["launches"] = check_launches(K, path, 2 * len(windows), len(mesh.devices))
+    out["certify"], out["step"] = certify, step
+    return out
+
+
+def _gloo_worker(rank: int, port: int, device: str, windows, q) -> None:
+    """One of two processes on gloo: its rows of each window (round-robin)
+    on a one-shard mesh of ``device``; counts all-reduced over both."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from pbft_tpu_torch import parallel as P
+        from pbft_tpu_torch.crypto import kernels as K
+
+        P.initialize_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=rank, backend="gloo")
+        try:
+            mesh = P.global_mesh(devices=[device])
+            rows = P.partition_items(list(range(B)))
+            local = {w["f"]: [a[rows] for a in w["args"][:4]] + [w["args"][4]] for w in windows}
+            certify = {w["f"]: P.quorum_certify(mesh, w["R"]) for w in windows}
+            out = {"rank": rank, "size": mesh.size, "rows": rows}
+            K.reset_launches()
+            for f, (pubs, msgs, sigs, rids, thr) in local.items():
+                staged = [P.host_shard_to_global(mesh, a) for a in (pubs, msgs, sigs, rids)]
+                res = certify[f](*staged, thr)
+                out[f] = {k: getattr(res, k).cpu().numpy() for k in ("valid", "counts", "certified")}
+            out["launches"] = dict(K.LAUNCHES)
+            for f, args in local.items():
+                dist.barrier()
+                out[f]["certify_ms"] = turns_ms(torch, {"certify": lambda: certify[f](*args)})["certify"]
+            q.put(out)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        q.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def run_gloo_pair(device: str, windows, card: str) -> dict:
+    """(c): two processes on gloo, each verifying its rows of every window
+    on ``device``; returns both processes' results by rank."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    slim = [{"f": w["f"], "R": w["R"], "args": w["args"]} for w in windows]
+    procs = [ctx.Process(target=_gloo_worker, args=(r, port, device, slim, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.monotonic() + 600
+        while len(results) < 2:
+            try:
+                res = q.get(timeout=5)
+            except queue.Empty:
+                check(time.monotonic() < deadline and all(p.exitcode in (None, 0) for p in procs),
+                      f"gloo workers: exit codes {[p.exitcode for p in procs]}")
+                continue
+            check("error" not in res, f"gloo worker {res['rank']} failed:\n{res.get('error')}")
+            results[res["rank"]] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return results
+
+
+def phase_parallel(torch, P, K, VS, batch, pool, want, rng, card: str) -> dict:
+    windows = [quorum_window(batch, pool, want, f, rng) for f in CLUSTERS]
+    launches = {}
+    mesh_a = P.make_mesh()
+    card0 = mesh_a.devices[0]
+    a = run_mesh(torch, P, K, mesh_a, "parallel_a_local_cards", windows, card)
+    launches["parallel_a_local_cards"] = a["launches"]
+    b = run_mesh(torch, P, K, P.make_mesh(devices=[card0, card0]), "parallel_b_two_shards_one_card", windows, card)
+    launches["parallel_b_two_shards_one_card"] = b["launches"]
+    for w in windows:
+        same = all(np.array_equal(a[w["f"]][k], b[w["f"]][k]) for k in ("valid", "counts", "certified", "state"))
+        emit("parallel", path="parallel_b_two_shards_one_card", f=w["f"], bit_equal_to_a=same, card=card)
+        check(same, f"two shards on one card differ from the mesh of the local cards at f={w['f']}")
+
+    c = run_gloo_pair(str(card0), windows, card)
+    for w in windows:
+        f = w["f"]
+        ok = {
+            "mesh_size": [c[r]["size"] for r in (0, 1)] == [2, 2],
+            "ranks_agree": all(np.array_equal(c[0][f][k], c[1][f][k]) for k in ("counts", "certified")),
+            "equal_to_a": all(np.array_equal(c[0][f][k], a[f][k]) for k in ("counts", "certified")),
+            "valid_of_own_rows": all(np.array_equal(c[r][f]["valid"], a[f]["valid"][c[r]["rows"]]) for r in (0, 1)),
+        }
+        emit("parallel", path="parallel_c_gloo_two_processes", f=f, **ok, card=card)
+        check(all(ok.values()), f"two processes on gloo at f={f}: {ok}")
+    for r in (0, 1):
+        check_launches(K, "parallel_c_gloo_two_processes", len(windows), got=c[r]["launches"], rank=r)
+    launches["parallel_c_gloo_two_processes"] = {k: c[0]["launches"][k] + c[1]["launches"][k] for k in K.KERNELS}
+
+    daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0)
+    try:
+        daemon.start(wait_ready=True, timeout=600)
+        js = VS.probe_status_json(daemon.address)
+        check(js["devices"] == torch.cuda.device_count(), f"daemon reports {js['devices']} devices")
+        K.reset_launches()
+        host, port = daemon.address.rsplit(":", 1)
+        with socket.create_connection((host, int(port)), timeout=300) as sock:
+            got = _request(sock, windows[0]["items"])
+        served = VS.probe_status_json(daemon.address)
+        ok = got == windows[0]["oracle"][: len(windows[0]["items"])].tolist()
+        emit("parallel", path="parallel_d_daemon_all_cards", devices=js["devices"],
+             card_count=torch.cuda.device_count(), items=len(got), equal_to_oracle=ok,
+             launches=served["launches"], fallback_items=served["fallback_items"], card=card)
+        check(ok and served["fallback_items"] == 0, "the daemon over every card served wrong verdicts")
+        launches["parallel_d_daemon_all_cards"] = check_launches(K, "parallel_d_daemon_all_cards",
+                                                                 served["launches"], js["devices"])
+    finally:
+        daemon.stop()
+
+    for w in windows:
+        f, args = w["f"], w["args"]
+        ms = turns_ms(torch, {
+            "verify_many": lambda: batch.verify_many(w["items"]),
+            "certify_a": lambda: a["certify"][f](*args),
+            "round_step_a": lambda: a["step"][f](STATE0, *args),
+            "certify_b": lambda: b["certify"][f](*args),
+            "round_step_b": lambda: b["step"][f](STATE0, *args),
+        })
+        emit("timing", path="parallel_same_window", f=f, batch=B, reps=REPS, ms_per_window=ms,
+             certify_c_ms=[c[r][f]["certify_ms"] for r in (0, 1)], card=card)
+    w = windows[0]
+    for path, fn in (("verify_many", lambda: batch.verify_many(w["items"])),
+                     ("certify_a", lambda: a["certify"][w["f"]](*w["args"])),
+                     ("certify_b", lambda: b["certify"][w["f"]](*w["args"]))):
+        emit("profile", path=path, f=w["f"], batch=B, **profile_window(torch, fn), card=card)
+    return launches
 
 
 def phase_timing(torch, F, E, K, batch, pool, rng, card, env) -> dict:
@@ -461,6 +764,7 @@ def main() -> int:
     from pbft_tpu_torch.crypto import batch, kernels as K, ref
     from pbft_tpu_torch.crypto import ed25519 as E
     from pbft_tpu_torch.crypto import field as F
+    from pbft_tpu_torch import parallel as P
     from pbft_tpu_torch.net import verify_service as VS
 
     card = smi("name,power.limit")
@@ -487,6 +791,8 @@ def main() -> int:
         window_run = services["service_window_4096"]
         check(window_run["launches"] < window_run["requests"], "no coalescing in the 4,096-item window")
         launches["engine_chunked"] = run_chunked(VS, K, pool, want, card)
+        phase = "parallel"
+        launches.update(phase_parallel(torch, P, K, VS, batch, pool, want, rng, card))
         phase = "timing"
         times = phase_timing(torch, F, E, K, batch, pool, rng, card, env)
         for path, run in services.items():

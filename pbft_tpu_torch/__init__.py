@@ -1,7 +1,8 @@
 """pbft_tpu_torch: the PyTorch/CUDA port of pbft_tpu's device layer.
 
-The port runs batched Ed25519 verification, and the verify service that owns
-the accelerator, on an NVIDIA H100. Every long multiply chain that the JAX
+The port runs batched Ed25519 verification, per-round quorum counting over
+the local cards and processes, and the verify service that owns the
+accelerator, on NVIDIA H100s. Every long multiply chain that the JAX
 package ran as a Pallas kernel is a CUDA C++ kernel written for sm_90a
 (``crypto/csrc/``); everything around the kernels is plain PyTorch.
 
@@ -18,6 +19,12 @@ Modules, each named after its JAX counterpart:
 - ``crypto.kernels``  the three kernel wrappers, plain versions, counters
 - ``crypto.ed25519``  decompress / Shamir ladder / compress / verify_kernel
 - ``crypto.batch``    pad ladder and ``verify_many``
-- ``net.service``     the 128-byte-triple coalescing server
-- ``net.verify_service``  ``CudaVerifyEngine``, the daemon, the CLI
+- ``parallel.verifier``  a window sharded over the local cards, per-round
+  quorum certification, the round step
+- ``parallel.multihost``  processes on ``torch.distributed``
+- ``net.service``     the 128-byte-triple coalescing server (backends
+  ``cpu`` and ``cuda``)
+- ``net.verify_service``  ``CudaVerifyEngine`` over a mesh of cards, the
+  daemon, the CLI
+- ``entry``           ``entry()`` and ``dryrun_multichip(n)``
 """

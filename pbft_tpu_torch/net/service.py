@@ -11,6 +11,10 @@ backend call, so the launch cost is paid once per window. With no
 accumulation knob set, the window is exactly "whatever queued while the
 previous launch ran".
 
+Backends by name: ``"cpu"`` (the RFC 8032 oracle, item by item) and
+``"cuda"`` (the batched verifier on the card, sharded over the local cards
+when there are several; raises at construction without CUDA).
+
 The Prometheus surface (``metrics_port``) is not ported yet: passing it
 raises ``NotImplementedError``.
 """
@@ -81,6 +85,14 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
     return bytes(buf)
 
 
+def cuda_backend(items: List[Item]) -> List[bool]:
+    """The batched verifier on the card: sharded over the local cards when
+    there are several (``parallel.verify_many_auto``)."""
+    from ..parallel import verify_many_auto
+
+    return verify_many_auto(items)
+
+
 def cpu_backend(items: List[Item]) -> List[bool]:
     """The RFC 8032 oracle, one item at a time."""
     from ..crypto import ref
@@ -123,8 +135,12 @@ class VerifierService:
         if metrics_port is not None:
             raise NotImplementedError("the metrics surface is not ported yet")
         backend_name = backend if isinstance(backend, str) else None
+        if backend == "cuda":
+            from ..device import resolve_device
+
+            resolve_device(None)  # no card: raise here, not per request
         if isinstance(backend, str):
-            backend = {"cpu": cpu_backend}[backend]
+            backend = {"cpu": cpu_backend, "cuda": cuda_backend}[backend]
         self.backend = backend
         # A bare service owns no card and has no warmup lifecycle, so it
         # reports "cpu-only"; the daemon (verify_service.py) overrides both

@@ -17,12 +17,15 @@ warm is not hidden: it is reported in the JSON status, re-raised by
 ``start(wait_ready=True)``, and ends the CLI with a nonzero exit. The
 ``cpu-only`` state is reached only through ``backend="cpu"``.
 
-Host<->device pipeline: each window is staged in a pinned host buffer of its
-own and copied with ``non_blocking``; with the dispatcher's ``inflight=2``
-each launch thread runs on its own CUDA stream (from PyTorch's stream pool),
-so window N+1 stages while window N computes.
+Cards and the host<->device pipeline: the engine shards every window over a
+mesh of the local cards (``parallel.compile_sharded``; ``--devices N`` keeps
+the first N). Each shard is staged in a pinned host buffer of its own, copied
+with ``non_blocking`` and verified on a CUDA stream of its own (from PyTorch's
+stream pool); with the dispatcher's ``inflight=2`` window N+1 stages while
+window N computes.
 
-CLI: ``python -m pbft_tpu_torch.net.verify_service --port 7600 [--device cpu]``.
+CLI: ``python -m pbft_tpu_torch.net.verify_service --port 7600 [--devices N]
+[--device cpu]``.
 """
 
 from __future__ import annotations
@@ -34,10 +37,8 @@ import threading
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
-from ..device import resolve_device
 from .service import (  # noqa: F401 - re-exported API
     Item,
     STATE_CPU_ONLY,
@@ -60,20 +61,24 @@ from .service import (  # noqa: F401 - re-exported API
 
 
 class CudaVerifyEngine:
-    """Owns the card: the kernel library and one warmed launch per window
-    shape. The duck type of the JAX package's ShardedVerifyEngine:
-    ``warm()``, ``verify(items)``, ``device_count``, ``warmed_sizes``,
-    ``stats``.
+    """Owns the cards: the kernel library, one mesh over the local cards and
+    one warmed sharded launch per window shape. The duck type of the JAX
+    package's ShardedVerifyEngine: ``warm()``, ``verify(items)``,
+    ``device_count``, ``warmed_sizes``, ``stats``.
 
-    ``kernel`` replaces ``ed25519.verify_kernel`` ((B,32),(B,32),(B,64)
-    uint8 tensors -> (B,) bool tensor); tests pass a cheap stand-in.
-    ``device`` is resolved at ``warm()`` (``None`` = the card)."""
+    ``devices`` is the number of shards: the first N local cards (default:
+    all of them) when ``device`` is None, else N shards on ``device`` (``"cpu"``
+    runs the plain path; default 1). ``kernel`` replaces
+    ``ed25519.verify_kernel`` ((B,32),(B,32),(B,64) uint8 tensors -> (B,)
+    bool tensor); tests pass a cheap stand-in. Devices are resolved at
+    ``warm()``."""
 
     def __init__(
         self,
         shapes: Optional[Sequence[int]] = None,
         device=None,
         kernel=None,
+        devices: Optional[int] = None,
     ):
         if shapes is None:
             from ..crypto.batch import _PAD_LADDER
@@ -81,18 +86,27 @@ class CudaVerifyEngine:
             shapes = _PAD_LADDER
         self._want_shapes = tuple(sorted(set(shapes)))
         self._want_device = device
+        self._want_devices = devices
         self._kernel = kernel
         self._lock = threading.Lock()
-        self._warmed: Tuple[int, ...] = ()
-        self.device: Optional[torch.device] = None
+        self._fns: dict = {}  # padded window size -> warmed sharded launch
         self.device_count = 0
         self.stats: dict = {}
 
     # -- startup -------------------------------------------------------------
 
+    def _make_mesh(self):
+        from ..parallel import make_mesh
+
+        if self._want_device is None:
+            return make_mesh(n_devices=self._want_devices)
+        return make_mesh(devices=[self._want_device] * (self._want_devices or 1))
+
     def warm(self) -> dict:
-        """Resolve the device, build or load the kernels, and launch once at
-        every window shape (an all-pad window, which must verify True).
+        """Build the mesh, build or load the kernels, and launch once at
+        every window shape, rounded up to a multiple of the mesh size (an
+        all-pad window, which must verify True). Raises without CUDA when
+        ``device`` is None, and when more cards are asked for than exist.
 
         Returns (and stores in ``self.stats``) the warmup accounting in the
         JAX engine's keys: ``compiled`` counts the shapes warmed here,
@@ -100,14 +114,16 @@ class CudaVerifyEngine:
         the whole warmup (kernel build included), ``build_s`` the build or
         load of the kernel library alone."""
         from ..crypto import kernels
-        from ..crypto.batch import pad_batch
+        from ..parallel import compile_sharded
 
         t0 = time.perf_counter()
-        dev = resolve_device(self._want_device)
+        mesh = self._make_mesh()
+        dev = mesh.devices[0]
         with self._lock:
             stats = {
-                "devices": 1,
+                "devices": mesh.size,
                 "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                "shards": [str(d) for d in mesh.devices],
                 "shapes": [],
                 "aot_loaded": 0,
                 "compiled": 0,
@@ -117,64 +133,45 @@ class CudaVerifyEngine:
             }
             if dev.type == "cuda" and self._kernel is None:
                 stats["build_s"] = round(kernels.build()["build_s"], 3)
-            self.device = dev
-            for size in self._want_shapes:
-                pubs, msgs, sigs, _ = pad_batch([], size)
-                out = self._launch(pubs, msgs, sigs)
-                if self._kernel is None and not out.all():
-                    raise RuntimeError(f"pad triple rejected at window {size}")
-                stats["compiled"] += 1
-                stats["shapes"].append(size)
+            fns = {}
+            for want in self._want_shapes:
+                size = -(-want // mesh.size) * mesh.size
+                if size not in fns:
+                    fns[size] = compile_sharded(mesh, size, kernel=self._kernel)
+                    stats["compiled"] += 1
+                    stats["shapes"].append(size)
             stats["cold_compile_s"] = round(time.perf_counter() - t0, 3)
-            self._warmed = tuple(stats["shapes"])
-            self.device_count = 1
+            self._fns = fns
+            self.device_count = mesh.size
             self.stats = stats
         return stats
 
     @property
     def warmed_sizes(self) -> Tuple[int, ...]:
-        return self._warmed
+        return tuple(sorted(self._fns))
 
     # -- serving -------------------------------------------------------------
 
-    def _launch(self, pubs: np.ndarray, msgs: np.ndarray, sigs: np.ndarray) -> np.ndarray:
-        """One padded window through the kernel -> (B,) bool numpy."""
-        from ..crypto.ed25519 import verify_kernel
-
-        kernel = self._kernel or verify_kernel
-        dev = self.device
-        if dev.type != "cuda":
-            return kernel(*(torch.from_numpy(a) for a in (pubs, msgs, sigs))).numpy()
-        # A stream of this launch's own (PyTorch's pool hands concurrent
-        # launch threads different streams) and pinned staging buffers of
-        # this window's own: no buffer is shared between in-flight windows.
-        stream = torch.cuda.Stream(device=dev)
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            host = [torch.from_numpy(a).pin_memory() for a in (pubs, msgs, sigs)]
-            staged = [h.to(dev, non_blocking=True) for h in host]
-            out = kernel(*staged)
-            verdicts = torch.empty(out.shape, dtype=torch.bool, pin_memory=True)
-            verdicts.copy_(out, non_blocking=True)
-            stream.synchronize()
-        return verdicts.numpy()
-
     def verify(self, items: List[Item]) -> List[bool]:
-        """Pad to a warmed window shape, stage, launch, read back. Oversized
-        batches chunk into top-of-ladder windows in order; no shape is
-        warmed at serving time."""
+        """Pad to a warmed window shape and launch it over the mesh: each
+        shard stages its rows through pinned memory on a stream of its own
+        (and from a thread of its own when there are several), then the
+        verdicts are read back in order. Oversized batches chunk into
+        top-of-ladder windows; no shape is warmed at serving time."""
         if not items:
             return []
-        if not self._warmed:
+        if not self._fns:
             raise RuntimeError("engine not warmed")
         from ..crypto.batch import pad_batch
 
-        top = self._warmed[-1]
+        sizes = self.warmed_sizes
         out: List[bool] = []
-        for off in range(0, len(items), top):
-            chunk = items[off : off + top]
-            size = min(s for s in self._warmed if s >= len(chunk))
+        for off in range(0, len(items), sizes[-1]):
+            chunk = items[off : off + sizes[-1]]
+            size = min(s for s in sizes if s >= len(chunk))
             pubs, msgs, sigs, n = pad_batch(chunk, size)
-            out.extend(bool(v) for v in self._launch(pubs, msgs, sigs)[:n])
+            verdicts = self._fns[size](pubs, msgs, sigs).cpu().numpy()
+            out.extend(bool(v) for v in verdicts[:n])
         return out
 
 
@@ -194,6 +191,7 @@ class VerifyServiceDaemon:
         unix_path: Optional[str] = None,
         backend: str = "cuda",
         device=None,
+        devices: Optional[int] = None,
         warm_shapes: Optional[Sequence[int]] = None,
         max_window: Optional[int] = None,
         flush_us: int = 0,
@@ -216,7 +214,7 @@ class VerifyServiceDaemon:
         self._warm_thread: Optional[threading.Thread] = None
         self.engine = engine
         if engine is None and backend == "cuda":
-            self.engine = CudaVerifyEngine(shapes=warm_shapes, device=device)
+            self.engine = CudaVerifyEngine(shapes=warm_shapes, device=device, devices=devices)
         self._fallback = fallback or cpu_backend
         self.fallback_items = 0
         self.service = VerifierService(
@@ -381,6 +379,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="engine device (default: the card; 'cpu' runs the plain path)",
     )
     parser.add_argument(
+        "--devices",
+        type=int,
+        default=None,
+        help="shard windows over this many local cards (default: all); with "
+        "--device, this many shards on that device",
+    )
+    parser.add_argument(
         "--warm-shapes",
         default=None,
         help="comma-separated window sizes to warm (default: the pad "
@@ -405,6 +410,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         unix_path=args.unix,
         backend=args.backend,
         device=args.device,
+        devices=args.devices,
         warm_shapes=shapes,
         max_window=args.window,
         flush_us=args.flush_us,

@@ -1,24 +1,30 @@
 """The port's verify service (pbft_tpu_torch.net) on the CPU: copies of the
 coalescing / lifecycle tests of tests/test_service_coalesce.py run against
-the port, and wire compatibility with the JAX package's own socket client
-(ServiceVerifier, probe_status, probe_status_json). Only the wire test runs
-the real plain verify path, at the single warmed shape 16."""
+the port, wire compatibility with the JAX package's own socket client
+(ServiceVerifier, probe_status, probe_status_json), and the engine's mesh of
+shards (--devices). Only the wire test and the 2-shard engine test run the
+real plain verify path, at one small warmed shape each."""
 
 import json
 import socket
 import threading
 import time
 
+import pytest
+import torch
+
 from pbft_tpu.net.service import VerifierService as JaxVerifierService
 from pbft_tpu.net.verify_service import ServiceVerifier
 from pbft_tpu.net.verify_service import probe_status as jax_probe_status
 from pbft_tpu.net.verify_service import probe_status_json as jax_probe_status_json
 from pbft_tpu_torch.crypto import ref
+from pbft_tpu_torch.net import verify_service as VS
 from pbft_tpu_torch.net.service import (
     STATE_CPU_ONLY,
     STATE_READY,
     STATE_WARMING,
     VerifierService,
+    cuda_backend,
 )
 from pbft_tpu_torch.net.verify_service import (
     CudaVerifyEngine,
@@ -396,3 +402,80 @@ def test_jax_client_talks_to_the_port_daemon():
         assert js["fallback_items"] == 0 and js["items"] == len(items)
     finally:
         daemon.stop()
+
+
+@pytest.mark.parametrize("devices,shapes,want", [(None, (8, 16), (8, 16)), (3, (8, 16), (9, 18)), (2, (16,), (16,))])
+def test_engine_shards_and_rounds_shapes_to_the_mesh(devices, shapes, want):
+    eng = CudaVerifyEngine(shapes=shapes, device="cpu", kernel=_fake_kernel, devices=devices)
+    stats = eng.warm()
+    assert eng.device_count == stats["devices"] == (devices or 1)
+    assert eng.warmed_sizes == want and stats["shapes"] == list(want)
+    assert stats["shards"] == ["cpu"] * (devices or 1)
+    big = [_item((i % 23) + 1, i % 5 != 0) for i in range(40)]
+    assert eng.verify(big) == [i % 5 != 0 for i in range(40)]
+
+
+def _signed_pairs(count: int):
+    items, want = [], []
+    for i in range(count):
+        seed, pub = ref.keygen(bytes([0x51 + i]) * 32)
+        msg = bytes([i]) * 32
+        sig = ref.sign(seed, msg)
+        items += [(pub, msg, sig), (pub, msg, sig[:32] + bytes([sig[32] ^ 1]) + sig[33:])]
+        want += [True, False]
+    return items, want
+
+
+def test_two_shard_engine_serves_the_oracle_and_reports_two_devices():
+    """The real plain verify on a 2-shard CPU mesh behind the daemon; the
+    invalid rows sit on both sides of the shard boundary (rows 3 | 4)."""
+    daemon = VerifyServiceDaemon(engine=CudaVerifyEngine(shapes=(8,), device="cpu", devices=2))
+    daemon.start(wait_ready=True, timeout=300)
+    try:
+        assert probe_status(daemon.address) == (STATE_READY, 2, 1)
+        js = probe_status_json(daemon.address)
+        assert js["devices"] == 2 and js["warm_stats"]["shards"] == ["cpu", "cpu"]
+        items, want = _signed_pairs(4)
+        assert want == [ref.verify(*it) for it in items]
+        assert _send_batch(daemon.address, items) == want
+        assert probe_status_json(daemon.address)["fallback_items"] == 0
+    finally:
+        daemon.stop()
+
+
+def test_cuda_backend_and_engine_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VerifierService(backend="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cuda_backend([_item(1, True)])
+    for devices in (None, 2):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CudaVerifyEngine(devices=devices).warm()
+
+
+def test_engine_raises_for_more_cards_than_exist(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="asked for 2 devices, 1 available"):
+        CudaVerifyEngine(devices=2, kernel=_fake_kernel).warm()
+
+
+@pytest.mark.parametrize("argv,want", [([], None), (["--devices", "3"], 3), (["--devices", "1", "--device", "cpu"], 1)])
+def test_cli_parses_devices(monkeypatch, argv, want):
+    seen = {}
+
+    class Recorder:
+        def __init__(self, **kwargs):
+            seen.update(kwargs)
+
+        def start(self, wait_ready=False):
+            raise RuntimeError("not started")
+
+        def stop(self):
+            seen["stopped"] = True
+
+    monkeypatch.setattr(VS, "VerifyServiceDaemon", Recorder)
+    assert VS.main(argv) == 1
+    assert seen["devices"] == want and seen["stopped"]
