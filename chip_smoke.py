@@ -22,16 +22,30 @@ and no result line:
 3. verify   the first main path: verify_many at every pad shape and at
             ragged sizes, on batches signed with the port's oracle that mix in
             invalid rows; verdicts equal ref.verify row for row, and a fixed
-            item set gives identical verdicts at every pad shape.
-4. service  the second main path: the port's VerifyServiceDaemon warms on
-            the card and four client threads (an f = 1 cluster's replicas)
-            send 8 requests of 1,024 triples each over the 128-byte protocol,
-            with status probes between. Twice: with the daemon's defaults
-            (no accumulation window, two launches in flight), then with a
-            4,096-item accumulation window (flush_items), which must merge
-            requests. Verdicts correct, nothing served by the fallback; then
-            one 5,000-item engine call across the 4,096 chunk boundary.
-5. parallel the third main path, pbft_tpu_torch.parallel, on B = 4,096
+            item set gives identical verdicts at every pad shape. Each shape's
+            CUDA graph is captured at its first use, timed, before the count.
+4. graphs   the compile step (pbft_tpu_torch/utils/graphs.py): three B-row
+            windows in sequence through one slot's static buffers (the
+            second has pad rows where the first has invalid ones), each
+            replay equal to the eager on-card path (the same window op by
+            op) and the oracle, the first window's verdicts unchanged after
+            the others; one window's priming and capture times; an engine
+            with two slots and verify_many, each from two threads at once;
+            verify_many graph against eager in turns at 1,024 and 4,096; one
+            replayed and one eager 4,096 window under torch.profiler (launch
+            calls, device busy ms, idle share): the replayed one may make at
+            most 50 kernel launch calls.
+5. service  the second main path: the port's VerifyServiceDaemon warms on
+            the card (a graph per shape and slot) and four client threads (an
+            f = 1 cluster's replicas) send 8 requests of 1,024 triples each
+            over the 128-byte protocol, with status probes between. Twice:
+            with the daemon's defaults (no accumulation window, two launches
+            in flight), then with a 4,096-item accumulation window
+            (flush_items), which must merge requests. Verdicts correct,
+            nothing served by the fallback; each then timed in turns against
+            a service with the same knobs whose backend runs the eager path;
+            then one 5,000-item engine call across the 4,096 chunk boundary.
+6. parallel the third main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -46,13 +60,13 @@ and no result line:
             verifying its rows (partition_items): counts and certified equal
             on both and equal to (a). (d) The daemon over every local card:
             its status reports torch.cuda.device_count() devices and it
-            serves the oracle's verdicts. (e) Per-window times (host clock
-            after a synchronize, paths timed in turns) of quorum_certify in
-            (a), (b) and (c), of round_step, and of verify_many on the same
-            window; then one window of verify_many, (a) and (b) under
-            torch.profiler (aten events, device busy ms, CUDA runtime
-            calls), a diagnostic only.
-6. timing   CUDA-event times of each kernel's wrapper and of its plain
+            serves the oracle's verdicts. (a)-(c) also equal the eager path.
+            (e) Per-window times (host clock after a synchronize, paths timed
+            in turns) of quorum_certify in (a), (b) and (c), each beside its
+            eager path, of round_step, and of verify_many on the same window;
+            then one window of verify_many, (a) and (b) under torch.profiler
+            (aten events, device busy ms, CUDA runtime calls).
+7. timing   CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), the
             verify_many rate at 4096 and the service rates, beside the
@@ -61,7 +75,9 @@ and no result line:
 Launch counts are set to 0 just before each path (verify_many; each service
 run, after its warmup; the chunked call; each parallel path, in each of its
 processes) and read just after it: every kernel must have launched exactly
-once per window per shard that the path formed.
+once per window per shard that the path formed. A replay counts the
+launches its graph recorded at capture; every path's shapes are captured
+(and their eager priming runs launched) before its count starts.
 
 The line before the last is the kernel table ({"kernels": [...]}); the last
 line is {"ok": true, "device": {...}}.
@@ -129,6 +145,10 @@ SOURCES = {
 CLUSTERS = {1: 4, 10: 31}
 STATE0 = np.full(8, 2**31 - 2, np.int32)
 REPS = 4  # timed windows per path
+# CUDA runtime and driver calls that start work on the card, as the
+# profiler names them: kernels one by one, and whole graphs.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cuGraphLaunch")
+MAX_KERNEL_LAUNCH_CALLS = 50  # a replayed window issues its ~21.5k kernels as one graph
 
 
 class PhaseFailed(Exception):
@@ -372,8 +392,43 @@ def _request(sock, items):
     return [bool(b) for b in out]
 
 
-def run_service(VS, K, pool, want, card: str, path: str, **daemon_kwargs) -> tuple[dict, dict]:
-    """One daemon, four clients of 8 x 1,024 triples; (result, launches)."""
+def drive_clients(address: str, VS, pool, want) -> dict:
+    """Four client threads (an f = 1 cluster's replicas), 8 requests of 1,024
+    triples each, a status probe after each; verdicts against the oracle."""
+    errors, bad = [], []
+
+    def client(cid: int):
+        crng = np.random.default_rng(SEED + cid)
+        host, port = address.rsplit(":", 1)
+        try:
+            with socket.create_connection((host, int(port)), timeout=120) as sock:
+                for _ in range(8):
+                    pick = crng.integers(0, len(pool), size=1024)
+                    got = _request(sock, [pool[i] for i in pick])
+                    if got != [want[i] for i in pick]:
+                        bad.append(cid)
+                    sock.sendall(VS.STATUS_PROBE.to_bytes(4, "big"))
+                    if VS.unpack_status(VS._recv_exact(sock, VS.STATUS_LEN)) is None:
+                        bad.append(cid)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    secs = time.perf_counter() - t0
+    return {"secs": secs, "verifies_per_s": 4 * 8 * 1024 / secs, "correct": not bad and not errors,
+            "errors": errors[:3]}
+
+
+def run_service(VS, K, pool, want, card: str, path: str, eager_backend=None, **daemon_kwargs) -> tuple[dict, dict]:
+    """One daemon, four clients of 8 x 1,024 triples; (result, launches).
+    With ``eager_backend``, then the same traffic in turns (graph, eager,
+    eager, graph, ...) against this daemon and a service with the same
+    knobs whose backend runs each window op by op."""
     daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0, **daemon_kwargs)
     try:
         t0 = time.perf_counter()
@@ -381,46 +436,38 @@ def run_service(VS, K, pool, want, card: str, path: str, **daemon_kwargs) -> tup
         warm_s = time.perf_counter() - t0
         st = VS.probe_status(daemon.address)
         check(st == (VS.STATE_READY, daemon.engine.device_count, 5), f"daemon status {st}")
-        K.reset_launches()  # after the warmup's one launch per shape
-        errors = []
-        bad = []
-
-        def client(cid: int):
-            crng = np.random.default_rng(SEED + cid)
-            host, port = daemon.address.rsplit(":", 1)
-            try:
-                with socket.create_connection((host, int(port)), timeout=120) as sock:
-                    for _ in range(8):
-                        pick = crng.integers(0, len(pool), size=1024)
-                        got = _request(sock, [pool[i] for i in pick])
-                        if got != [want[i] for i in pick]:
-                            bad.append(cid)
-                        sock.sendall(VS.STATUS_PROBE.to_bytes(4, "big"))
-                        if VS.unpack_status(VS._recv_exact(sock, VS.STATUS_LEN)) is None:
-                            bad.append(cid)
-            except Exception as e:  # noqa: BLE001 - reported below
-                errors.append(repr(e))
-
-        threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-        secs = time.perf_counter() - t0
+        K.reset_launches()  # after the warmup's captures and all-pad windows
+        run = drive_clients(daemon.address, VS, pool, want)
         js = VS.probe_status_json(daemon.address)
         result = {
             "path": path, **daemon_kwargs, "state": js["state"], "warmed_shapes": js["warmed_shapes"],
-            "warm_s": round(warm_s, 3), "requests": js["requests"], "launches": js["launches"],
-            "items": js["items"], "fallback_items": js["fallback_items"],
-            "verdicts_correct": not bad and not errors, "secs": secs,
-            "verifies_per_s": 4 * 8 * 1024 / secs, "card": card,
+            "warm_s": round(warm_s, 3), "warm_stats": js["warm_stats"], "requests": js["requests"],
+            "launches": js["launches"], "items": js["items"], "fallback_items": js["fallback_items"],
+            "verdicts_correct": run["correct"], "secs": run["secs"],
+            "verifies_per_s": run["verifies_per_s"], "card": card,
         }
-        emit("service", **result, errors=errors[:3])
-        check(not errors and not bad, "service verdicts wrong or a client failed")
+        emit("service", **result, errors=run["errors"])
+        check(run["correct"], "service verdicts wrong or a client failed")
         check(js["requests"] == 32, f"{js['requests']} requests reached the service")
         check(js["fallback_items"] == 0, "the fallback served traffic")
-        return result, check_launches(K, path, js["launches"], daemon.engine.device_count)
+        launches = check_launches(K, path, js["launches"], daemon.engine.device_count)
+        if eager_backend is not None:
+            knobs = {k: v for k, v in daemon_kwargs.items() if k in ("flush_items", "flush_us")}
+            eager = VS.VerifierService(host="127.0.0.1", port=0, backend=eager_backend,
+                                       inflight=daemon_kwargs.get("inflight", 2), **knobs).start()
+            try:
+                rates = {"graph": [], "eager": []}
+                for rep in range(2):
+                    for name in (("graph", "eager") if rep % 2 == 0 else ("eager", "graph")):
+                        r = drive_clients(daemon.address if name == "graph" else eager.address, VS, pool, want)
+                        check(r["correct"], f"{path}: {name} service verdicts wrong")
+                        rates[name].append(r["verifies_per_s"])
+            finally:
+                eager.stop()
+            result["turns_verifies_per_s"] = rates
+            emit("timing", path=path, compare="graph_vs_eager_in_turns", reps=2, verifies_per_s=rates,
+                 graph_over_eager=float(np.mean(rates["graph"]) / np.mean(rates["eager"])), card=card)
+        return result, launches
     finally:
         daemon.stop()
 
@@ -435,6 +482,132 @@ def run_chunked(VS, K, pool, want, card: str) -> dict:
     emit("service", path="engine_chunked", items=len(big), correct=ok, card=card)
     check(ok, "chunked verify across the 4096 boundary is wrong")
     return check_launches(K, "engine_chunked", 2, engine.device_count)
+
+
+# ---------------------------------------------------------------------------
+# The compile step: captured windows against the eager path.
+# ---------------------------------------------------------------------------
+
+
+def eager_verify(torch, E, pubs, msgs, sigs):
+    """One window op by op on the card, as the port ran every window before
+    the compile step: staged, ed25519.verify_kernel, verdicts to the host."""
+    dev = torch.device("cuda")
+    return E.verify_kernel(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pubs, msgs, sigs))).cpu()
+
+
+def eager_many(torch, E, batch, items) -> list:
+    pubs, msgs, sigs, n = batch.pad_batch(items, batch.pad_size(len(items)))
+    return [bool(v) for v in eager_verify(torch, E, pubs, msgs, sigs)[:n]]
+
+
+def capture_verify_shapes(batch, pool, sizes, card: str) -> dict:
+    """verify_many's window of each shape captured ahead of the verify
+    phase's count: its first use (priming run, capture, instantiation and
+    one replay), timed."""
+    out = {}
+    for size in sizes:
+        t0 = time.perf_counter()
+        batch.verify_many(pool[:1], pad_to=size)
+        out[size] = time.perf_counter() - t0
+    emit("graphs", path="verify_many_first_use", seconds_by_shape=out, card=card)
+    return out
+
+
+def _together(fns) -> list:
+    """Each fn in a thread of its own, all released at once; their results."""
+    gate = threading.Barrier(len(fns), timeout=120)
+    out, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            gate.wait()
+            out[i] = fns[i]()
+        except Exception as e:  # noqa: BLE001 - checked below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not errors and not any(t.is_alive() for t in threads), f"concurrent windows failed: {errors[:2]}")
+    return out
+
+
+def phase_graphs(torch, E, K, VS, batch, pool, want, rng, card: str) -> dict:
+    """The compile step on its own: (1) windows of B rows in sequence through
+    one slot's static buffers (the second has pad rows where the first has
+    invalid ones), each replay against the eager path and the oracle, and
+    the first window's verdicts unchanged after the others; (2) an engine
+    with two slots, and verify_many, each from two threads at once; (3)
+    verify_many, graph against eager, in turns; (4) one replayed and one
+    eager window under the profiler. Returns the timings."""
+    want_arr = np.asarray(want)
+    bad = np.flatnonzero(~want_arr)
+    picks = [rng.choice(len(pool), size=n) for n in (B, 3000, B)]
+    picks[0][3000:3100] = rng.choice(bad, size=100)
+    K.reset_launches()
+    kept = []
+    for k, pick in enumerate(picks):
+        pubs, msgs, sigs, n = batch.pad_batch([pool[i] for i in pick], B)
+        graph = batch.verify_batch(pubs, msgs, sigs).cpu()
+        eager = eager_verify(torch, E, pubs, msgs, sigs)
+        oracle = np.ones(B, bool)
+        oracle[:n] = want_arr[pick]
+        ok = {"equal_to_eager": torch.equal(graph, eager), "equal_to_oracle": np.array_equal(graph.numpy(), oracle)}
+        emit("graphs", path="window_sequence", window=k, items=n, rejected=int((~oracle).sum()), **ok, card=card)
+        check(all(ok.values()), f"window {k} of the sequence: {ok}")
+        kept.append((graph, oracle))
+    check(np.array_equal(kept[0][0].numpy(), kept[0][1]), "an earlier window's verdicts changed")
+    check_launches(K, "graphs_window_sequence", 2 * len(picks))  # one replay and one eager window each
+
+    from pbft_tpu_torch.utils import graphs as G
+
+    window = G.CapturedWindow(E.verify_kernel, [((B, w), torch.uint8) for w in (32, 32, 64)], "cuda").capture()
+    emit("graphs", path="capture_one_window", batch=B, prime_s=window.prime_s,
+         capture_and_instantiate_s=window.capture_s, launches_per_replay=window.launches, card=card)
+    check(all(n == 1 for n in window.launches.values()), f"one capture recorded {window.launches}")
+    del window
+    engine = VS.CudaVerifyEngine(shapes=(B,), slots=2)
+    stats = engine.warm()
+    emit("graphs", path="engine_two_slots", warm_stats=stats, card=card)
+    check(stats["compiled"] == 2 * engine.device_count, f"the engine captured {stats['compiled']} graphs")
+    pairs = [rng.choice(len(pool), size=B) for _ in range(2)]
+    batches = [[pool[i] for i in pick] for pick in pairs]
+    expect = [want_arr[pick].tolist() for pick in pairs]
+    rounds = 3
+    K.reset_launches()
+    for _ in range(rounds):
+        got = _together([lambda b=b: engine.verify(b) for b in batches])
+        check(got == expect, "two slots of one engine at once: wrong verdicts")
+    emit("graphs", path="engine_two_slots", rounds=rounds, threads=2, correct=True, card=card)
+    check_launches(K, "graphs_engine_two_slots", 2 * rounds, engine.device_count)
+    for _ in range(rounds):  # a second slot of a lazily captured shape, captured while the first replays
+        got = _together([lambda b=b: batch.verify_many(b) for b in batches])
+        check(got == expect, "verify_many from two threads at once: wrong verdicts")
+    emit("graphs", path="verify_many_two_threads", rounds=rounds, threads=2, correct=True, card=card)
+
+    out = {}
+    for size in (1024, B):
+        items = batches[0][:size]
+        ms = turns_ms(torch, {"graph": lambda: batch.verify_many(items),
+                              "eager": lambda: eager_many(torch, E, batch, items)})
+        out[size] = {name: {"ms_per_window": t, "verifies_per_s": size / t * 1e3} for name, t in ms.items()}
+        emit("timing", path="verify_many", compare="graph_vs_eager_in_turns", batch=size, reps=REPS,
+             **out[size], graph_over_eager=ms["eager"] / ms["graph"], card=card)
+    prof = {}
+    for name, fn in (("graph", lambda: batch.verify_many(batches[0])),
+                     ("eager", lambda: eager_many(torch, E, batch, batches[0]))):
+        prof[name] = profile_window(torch, fn)
+        if "device_busy_ms" in prof[name]:
+            prof[name]["idle_share"] = 1 - prof[name]["device_busy_ms"] / out[B][name]["ms_per_window"]
+        emit("profile", path=f"verify_many_{name}", batch=B, **prof[name], card=card)
+    calls = prof["graph"].get("launch_calls")
+    if calls is not None:
+        kernel_calls = sum(v for k, v in calls.items() if "Graph" not in k)
+        check(kernel_calls <= MAX_KERNEL_LAUNCH_CALLS, f"a replayed window made {kernel_calls} kernel launch calls")
+    return {"verify_many": out, "profile": prof, "engine_two_slots": stats}
 
 
 # ---------------------------------------------------------------------------
@@ -525,22 +698,61 @@ def profile_window(torch, fn) -> dict:
     def device_us(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
-    runtime = sorted((e for e in events if e.key.startswith("cuda")), key=lambda e: -e.cpu_time_total)
+    runtime = sorted((e for e in events if e.key.startswith("cu")), key=lambda e: -e.cpu_time_total)
     return {
         "aten_events": sum(e.count for e in events if e.key.startswith("aten::")),
         "wall_ms_profiled": wall_ms,
         "device_busy_ms": sum(device_us(e) for e in events) / 1e3,
+        "launch_calls": {k: sum(e.count for e in runtime if e.key == k) for k in LAUNCH_CALLS},
         "runtime_calls": {e.key: [e.count, e.cpu_time_total / 1e3] for e in runtime[:6]},
     }
 
 
-def run_mesh(torch, P, K, mesh, path: str, windows, card: str) -> dict:
+def eager_certify(torch, E, mesh, R: int):
+    """quorum_certify op by op, as the port ran it before the compile step:
+    each shard's rows staged and verified eagerly on its card, counted per
+    round, the counts summed and all-reduced; (valid, counts, certified) on
+    the host."""
+
+    def certify(pubs, msgs, sigs, round_ids, thresholds):
+        k = len(mesh.devices)
+        step = len(pubs) // k
+        valid, counts = [], []
+        for i, dev in enumerate(mesh.devices):
+            rows = slice(i * step, (i + 1) * step)
+            ok = E.verify_kernel(*(torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+                                   for a in (pubs, msgs, sigs)))
+            rid = torch.from_numpy(np.asarray(round_ids[rows], np.int32)).to(dev).clamp(0, R).long()
+            c = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+            c.scatter_add_(0, rid, ok.to(torch.int32))
+            valid.append(ok.cpu())
+            counts.append(c[:R].cpu())
+        total = torch.stack(counts).sum(0, dtype=torch.int32)
+        if mesh.group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(total, group=mesh.group)
+        return torch.cat(valid), total, total >= torch.from_numpy(np.asarray(thresholds, np.int32))
+
+    return certify
+
+
+def run_mesh(torch, P, K, E, mesh, path: str, windows, card: str) -> dict:
     """quorum_certify and round_step on one mesh at every window, checked
-    against the oracle and the numpy model; launches once per window per
-    shard. Returns the results and the two callables per window."""
+    against the oracle, the numpy model and the eager path; launches once
+    per window per shard. Each (window shape, R) is captured at its first
+    use, before the count. Returns the results and the callables per
+    window."""
     out = {}
     certify = {w["f"]: P.quorum_certify(mesh, w["R"]) for w in windows}
     step = {w["f"]: P.round_step(mesh, w["R"]) for w in windows}
+    eager = {w["f"]: eager_certify(torch, E, mesh, w["R"]) for w in windows}
+    first_use_s = {}
+    for w in windows:
+        t0 = time.perf_counter()
+        certify[w["f"]](*w["args"])
+        first_use_s[w["f"]] = time.perf_counter() - t0
+    emit("graphs", path=path, first_use_s_by_f=first_use_s, shards=len(mesh.devices), card=card)
     K.reset_launches()
     for w in windows:
         res = certify[w["f"]](*w["args"])
@@ -566,7 +778,14 @@ def run_mesh(torch, P, K, mesh, path: str, windows, card: str) -> dict:
         check(all(ok.values()), f"{path} f={w['f']}: {ok}")
         out[w["f"]] = got
     out["launches"] = check_launches(K, path, 2 * len(windows), len(mesh.devices))
-    out["certify"], out["step"] = certify, step
+    for w in windows:
+        valid, counts, certified = eager[w["f"]](*w["args"])
+        got = out[w["f"]]
+        same = (np.array_equal(valid.numpy(), got["valid"]) and np.array_equal(counts.numpy(), got["counts"])
+                and np.array_equal(certified.numpy(), got["certified"]))
+        emit("parallel", path=path, f=w["f"], equal_to_eager=same, card=card)
+        check(same, f"{path} f={w['f']}: the captured path differs from the eager one")
+    out["certify"], out["step"], out["eager"] = certify, step, eager
     return out
 
 
@@ -578,6 +797,7 @@ def _gloo_worker(rank: int, port: int, device: str, windows, q) -> None:
         import torch.distributed as dist
 
         from pbft_tpu_torch import parallel as P
+        from pbft_tpu_torch.crypto import ed25519 as E
         from pbft_tpu_torch.crypto import kernels as K
 
         P.initialize_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=rank, backend="gloo")
@@ -586,7 +806,10 @@ def _gloo_worker(rank: int, port: int, device: str, windows, q) -> None:
             rows = P.partition_items(list(range(B)))
             local = {w["f"]: [a[rows] for a in w["args"][:4]] + [w["args"][4]] for w in windows}
             certify = {w["f"]: P.quorum_certify(mesh, w["R"]) for w in windows}
+            eager = {w["f"]: eager_certify(torch, E, mesh, w["R"]) for w in windows}
             out = {"rank": rank, "size": mesh.size, "rows": rows}
+            for f, args in local.items():  # each (shape, R) captured at its first use
+                certify[f](*args)
             K.reset_launches()
             for f, (pubs, msgs, sigs, rids, thr) in local.items():
                 staged = [P.host_shard_to_global(mesh, a) for a in (pubs, msgs, sigs, rids)]
@@ -594,8 +817,13 @@ def _gloo_worker(rank: int, port: int, device: str, windows, q) -> None:
                 out[f] = {k: getattr(res, k).cpu().numpy() for k in ("valid", "counts", "certified")}
             out["launches"] = dict(K.LAUNCHES)
             for f, args in local.items():
+                valid, counts, certified = eager[f](*args)
+                out[f]["equal_to_eager"] = (np.array_equal(valid.numpy(), out[f]["valid"])
+                                            and np.array_equal(counts.numpy(), out[f]["counts"])
+                                            and np.array_equal(certified.numpy(), out[f]["certified"]))
                 dist.barrier()
-                out[f]["certify_ms"] = turns_ms(torch, {"certify": lambda: certify[f](*args)})["certify"]
+                ms = turns_ms(torch, {"certify": lambda: certify[f](*args), "eager": lambda: eager[f](*args)})
+                out[f]["certify_ms"], out[f]["eager_ms"] = ms["certify"], ms["eager"]
             q.put(out)
         finally:
             dist.destroy_process_group()
@@ -639,14 +867,15 @@ def run_gloo_pair(device: str, windows, card: str) -> dict:
     return results
 
 
-def phase_parallel(torch, P, K, VS, batch, pool, want, rng, card: str) -> dict:
+def phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card: str) -> dict:
     windows = [quorum_window(batch, pool, want, f, rng) for f in CLUSTERS]
     launches = {}
     mesh_a = P.make_mesh()
     card0 = mesh_a.devices[0]
-    a = run_mesh(torch, P, K, mesh_a, "parallel_a_local_cards", windows, card)
+    a = run_mesh(torch, P, K, E, mesh_a, "parallel_a_local_cards", windows, card)
     launches["parallel_a_local_cards"] = a["launches"]
-    b = run_mesh(torch, P, K, P.make_mesh(devices=[card0, card0]), "parallel_b_two_shards_one_card", windows, card)
+    b = run_mesh(torch, P, K, E, P.make_mesh(devices=[card0, card0]), "parallel_b_two_shards_one_card", windows,
+                 card)
     launches["parallel_b_two_shards_one_card"] = b["launches"]
     for w in windows:
         same = all(np.array_equal(a[w["f"]][k], b[w["f"]][k]) for k in ("valid", "counts", "certified", "state"))
@@ -661,6 +890,7 @@ def phase_parallel(torch, P, K, VS, batch, pool, want, rng, card: str) -> dict:
             "ranks_agree": all(np.array_equal(c[0][f][k], c[1][f][k]) for k in ("counts", "certified")),
             "equal_to_a": all(np.array_equal(c[0][f][k], a[f][k]) for k in ("counts", "certified")),
             "valid_of_own_rows": all(np.array_equal(c[r][f]["valid"], a[f]["valid"][c[r]["rows"]]) for r in (0, 1)),
+            "equal_to_eager": all(c[r][f]["equal_to_eager"] for r in (0, 1)),
         }
         emit("parallel", path="parallel_c_gloo_two_processes", f=f, **ok, card=card)
         check(all(ok.values()), f"two processes on gloo at f={f}: {ok}")
@@ -696,9 +926,12 @@ def phase_parallel(torch, P, K, VS, batch, pool, want, rng, card: str) -> dict:
             "round_step_a": lambda: a["step"][f](STATE0, *args),
             "certify_b": lambda: b["certify"][f](*args),
             "round_step_b": lambda: b["step"][f](STATE0, *args),
+            "eager_certify_a": lambda: a["eager"][f](*args),
+            "eager_certify_b": lambda: b["eager"][f](*args),
         })
         emit("timing", path="parallel_same_window", f=f, batch=B, reps=REPS, ms_per_window=ms,
-             certify_c_ms=[c[r][f]["certify_ms"] for r in (0, 1)], card=card)
+             certify_c_ms=[c[r][f]["certify_ms"] for r in (0, 1)],
+             eager_certify_c_ms=[c[r][f]["eager_ms"] for r in (0, 1)], card=card)
     w = windows[0]
     for path, fn in (("verify_many", lambda: batch.verify_many(w["items"])),
                      ("certify_a", lambda: a["certify"][w["f"]](*w["args"])),
@@ -780,19 +1013,24 @@ def main() -> int:
         pool, want = make_pool(ref, rng)
         emit("verify", pool_items=len(pool), pool_rejected=want.count(False),
              oracle_s=round(time.perf_counter() - t0, 3))
+        capture_verify_shapes(batch, pool, sorted({batch.pad_size(n) for n in VERIFY_SIZES}), card)
         K.reset_launches()
         windows = phase_verify(batch, pool, want, rng, card)
         launches = {"verify_many": check_launches(K, "verify_many", windows)}
+        phase = "graphs"
+        phase_graphs(torch, E, K, VS, batch, pool, want, rng, card)
         phase = "service"
         services = {}
         for path, kwargs in (("service_default", {}),
                              ("service_window_4096", {"flush_items": 4096, "flush_us": 100_000})):
-            services[path], launches[path] = run_service(VS, K, pool, want, card, path, **kwargs)
+            services[path], launches[path] = run_service(
+                VS, K, pool, want, card, path, eager_backend=lambda items: eager_many(torch, E, batch, items),
+                **kwargs)
         window_run = services["service_window_4096"]
         check(window_run["launches"] < window_run["requests"], "no coalescing in the 4,096-item window")
         launches["engine_chunked"] = run_chunked(VS, K, pool, want, card)
         phase = "parallel"
-        launches.update(phase_parallel(torch, P, K, VS, batch, pool, want, rng, card))
+        launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
         phase = "timing"
         times = phase_timing(torch, F, E, K, batch, pool, rng, card, env)
         for path, run in services.items():

@@ -26,5 +26,7 @@ Modules, each named after its JAX counterpart:
   ``cpu`` and ``cuda``)
 - ``net.verify_service``  ``CudaVerifyEngine`` over a mesh of cards, the
   daemon, the CLI
+- ``utils.graphs``    the compile step: each window shape captured once into
+  a CUDA graph and replayed (no JAX counterpart file: ``jax.jit`` does it)
 - ``entry``           ``entry()`` and ``dryrun_multichip(n)``
 """

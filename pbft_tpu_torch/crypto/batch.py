@@ -2,18 +2,23 @@
 
 ``verify_batch(pubs, msgs, sigs, device=None)`` verifies B independent
 Ed25519 signatures in one pass of ``ed25519.verify_kernel`` on the card (or
-on the CPU when asked), launching each of the three CUDA kernels once.
-``verify_many`` pads a list of byte triples to the pad ladder with a
-known-good self-signed triple (pad slots never fail a batch) and slices the
-verdicts back.
+on the CPU when asked), launching each of the three CUDA kernels once. On
+the card the pass is a CUDA graph captured at the first batch of each shape
+(as ``jax.jit`` traces once per shape; ``utils/graphs.py``) and replayed
+through static buffers after. ``verify_many`` pads a list of byte triples to
+the pad ladder with a known-good self-signed triple (pad slots never fail a
+batch) and slices the verdicts back.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import graphs
 from . import ref
 from .ed25519 import verify_kernel
 
@@ -27,17 +32,27 @@ _PAD_SIG = np.frombuffer(ref.sign(_PAD_SEED, _PAD_MSG), np.uint8)
 _PAD_MSG_ARR = np.frombuffer(_PAD_MSG, np.uint8)
 
 
-def _u8(x, dev: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=torch.uint8)
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(dev)
+def _verify(pubs, msgs, sigs):
+    return verify_kernel(pubs, msgs, sigs)  # looked up at each call (or capture)
+
+
+def _capture(dev: torch.device, rows: int):
+    specs = [((rows, w), torch.uint8) for w in (32, 32, 64)]
+    return graphs.CapturedWindow(_verify, specs, dev).capture()
 
 
 def verify_batch(pubs, msgs, sigs, device=None) -> torch.Tensor:
     """(B,32),(B,32),(B,64) uint8 arrays or tensors -> (B,) bool tensor on
-    the device the batch ran on."""
+    the device the batch ran on. The batch runs in a window captured for
+    (device, B) at its first use and held in a slot of its own while it
+    runs."""
     dev = resolve_device(device)
-    return verify_kernel(_u8(pubs, dev), _u8(msgs, dev), _u8(sigs, dev))
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rows = len(pubs)
+    pool = graphs.cached_pool(("batch", dev, rows), lambda: _capture(dev, rows))
+    with pool.slot() as window:
+        return window.run(pubs, msgs, sigs)[0].to(dev)
 
 
 def pad_batch(items, size: int):
@@ -89,10 +104,7 @@ def verify_many(
     if size % size_multiple:
         size = ((size + size_multiple - 1) // size_multiple) * size_multiple
     pubs, msgs, sigs, n = pad_batch(items, size)
-    if launch is None:
-        out = verify_batch(pubs, msgs, sigs, device=device)
-    else:
-        out = launch(pubs, msgs, sigs)
+    out = (launch or functools.partial(verify_batch, device=device))(pubs, msgs, sigs)
     if isinstance(out, torch.Tensor):
         out = out.cpu().numpy()
     return [bool(v) for v in np.asarray(out)[:n]]

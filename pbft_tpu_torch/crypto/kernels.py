@@ -17,8 +17,10 @@ back. Inputs are checked (device, dtype, shape, contiguity, 16-byte
 alignment) and handed to the kernels in their own batch-major (..., 32)
 layout, with no transposes; a group of lanes of one warp owns each item
 (``csrc/fe25519.cuh``). Kernels launch on the calling thread's current
-stream (the verify service runs two launch threads, each on its own
-stream). ``LAUNCHES`` counts kernel launches per wrapper.
+stream: on a graph's own stream when it is captured
+(``utils/graphs.py``). ``LAUNCHES`` counts kernel launches per wrapper; a
+launch that is recorded into a CUDA graph is counted at each replay of the
+graph instead (``recording``, ``add_launches``).
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use, one
 process per source started together, into plain-C shared libraries loaded
@@ -28,6 +30,7 @@ under the repository root. Nothing is compiled when this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -70,9 +73,35 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
+_capture = threading.local()
+
+
 def _count(name: str) -> None:
+    recorded = getattr(_capture, "counts", None)
+    if recorded is not None:  # into a graph: counted when it replays
+        recorded[name] += 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """While this thread captures a CUDA graph: the launches its wrappers
+    record, per kernel, instead of counting them in ``LAUNCHES``."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one replay of a graph (``recording``'s counts)."""
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 # ---------------------------------------------------------------------------

@@ -131,6 +131,25 @@ def _compress_block(state, whi, wlo):
     return tuple(_add64(s, o) for s, o in zip(state, out))
 
 
+_CONSTS: dict = {}
+
+
+def _consts(n: int, dev: torch.device):
+    """The padding block of an n-byte message and the byte shifts, as
+    tensors on ``dev``, uploaded once per device: a copy per call would
+    block the host and cannot be captured into a CUDA graph."""
+    key = (n, dev)
+    out = _CONSTS.get(key)
+    if out is None:
+        nblocks = (n + 17 + 127) // 128
+        pad = np.zeros(nblocks * 128 - n, np.uint8)
+        pad[0] = 0x80
+        pad[-16:] = np.frombuffer((n * 8).to_bytes(16, "big"), np.uint8)
+        shifts = np.array([24, 16, 8, 0], np.int64)
+        out = _CONSTS.setdefault(key, (torch.from_numpy(pad).to(dev), torch.from_numpy(shifts).to(dev)))
+    return out
+
+
 def sha512(msg) -> torch.Tensor:
     """SHA-512 of a fixed-length byte tensor.
 
@@ -138,19 +157,11 @@ def sha512(msg) -> torch.Tensor:
     """
     dev = msg.device
     lead = msg.shape[:-1]
-    n = msg.shape[-1]
-    nblocks = (n + 17 + 127) // 128
-    padlen = nblocks * 128 - n
-    pad = np.zeros(padlen, np.uint8)
-    pad[0] = 0x80
-    pad[-16:] = np.frombuffer((n * 8).to_bytes(16, "big"), np.uint8)
-    padded = torch.cat(
-        [msg.to(torch.uint8), torch.from_numpy(pad).to(dev).expand(lead + (padlen,))],
-        dim=-1,
-    )
+    pad, shifts = _consts(msg.shape[-1], dev)
+    padded = torch.cat([msg.to(torch.uint8), pad.expand(lead + pad.shape)], dim=-1)
+    nblocks = padded.shape[-1] // 128
     # Big-endian 64-bit words as (hi, lo) halves: bytes 0-3 / 4-7.
     grouped = padded.reshape(lead + (nblocks, 16, 2, 4)).to(torch.int64)
-    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int64, device=dev)
     halves = (grouped << shifts).sum(dim=-1)  # (..., nblocks, 16, 2)
     whi = halves[..., 0]
     wlo = halves[..., 1]

@@ -2,10 +2,11 @@
 ``pbft_tpu/net/verify_service.py`` (engine, daemon, status probes, CLI).
 
 One long-lived process owns the H100: ``CudaVerifyEngine.warm()`` builds (or
-loads) the kernel library and runs one launch per pad-ladder window shape at
-startup, outside any request; then the daemon serves the 128-byte-triple
-protocol of ``service.py``, merging the traffic of every colocated replica
-into one window per launch.
+loads) the kernel library and captures one CUDA graph per pad-ladder window
+shape, shard and launch slot at startup, outside any request (the
+counterpart of the JAX engine's AOT executables); then the daemon serves the
+128-byte-triple protocol of ``service.py``, merging the traffic of every
+colocated replica into one window per launch, each a replay.
 
 Readiness handshake: a request with item count 0 returns an 8-byte status
 record (state warming|ready|cpu-only, device count, warmed shape count);
@@ -19,10 +20,11 @@ warm is not hidden: it is reported in the JSON status, re-raised by
 
 Cards and the host<->device pipeline: the engine shards every window over a
 mesh of the local cards (``parallel.compile_sharded``; ``--devices N`` keeps
-the first N). Each shard is staged in a pinned host buffer of its own, copied
-with ``non_blocking`` and verified on a CUDA stream of its own (from PyTorch's
-stream pool); with the dispatcher's ``inflight=2`` window N+1 stages while
-window N computes.
+the first N). Each shard of each slot has its own captured window: static
+pinned host buffers, static device buffers, a graph memory pool and a CUDA
+stream (``utils/graphs.py``). The daemon passes its ``inflight`` as the slot
+count, so with ``inflight=2`` window N+1 stages and replays in its own slot
+while window N computes.
 
 CLI: ``python -m pbft_tpu_torch.net.verify_service --port 7600 [--devices N]
 [--device cpu]``.
@@ -62,16 +64,17 @@ from .service import (  # noqa: F401 - re-exported API
 
 class CudaVerifyEngine:
     """Owns the cards: the kernel library, one mesh over the local cards and
-    one warmed sharded launch per window shape. The duck type of the JAX
+    one compiled sharded window per window shape. The duck type of the JAX
     package's ShardedVerifyEngine: ``warm()``, ``verify(items)``,
     ``device_count``, ``warmed_sizes``, ``stats``.
 
     ``devices`` is the number of shards: the first N local cards (default:
     all of them) when ``device`` is None, else N shards on ``device`` (``"cpu"``
-    runs the plain path; default 1). ``kernel`` replaces
-    ``ed25519.verify_kernel`` ((B,32),(B,32),(B,64) uint8 tensors -> (B,)
-    bool tensor); tests pass a cheap stand-in. Devices are resolved at
-    ``warm()``."""
+    runs the plain path; default 1). ``slots`` is the number of windows of
+    one shape that may run at once (the daemon passes its ``inflight``).
+    ``kernel`` replaces ``ed25519.verify_kernel`` ((B,32),(B,32),(B,64)
+    uint8 tensors -> (B,) bool tensor); tests pass a cheap stand-in.
+    Devices are resolved at ``warm()``."""
 
     def __init__(
         self,
@@ -79,6 +82,7 @@ class CudaVerifyEngine:
         device=None,
         kernel=None,
         devices: Optional[int] = None,
+        slots: int = 1,
     ):
         if shapes is None:
             from ..crypto.batch import _PAD_LADDER
@@ -87,9 +91,10 @@ class CudaVerifyEngine:
         self._want_shapes = tuple(sorted(set(shapes)))
         self._want_device = device
         self._want_devices = devices
+        self._slots = max(1, slots)
         self._kernel = kernel
         self._lock = threading.Lock()
-        self._fns: dict = {}  # padded window size -> warmed sharded launch
+        self._fns: dict = {}  # padded window size -> compiled sharded window
         self.device_count = 0
         self.stats: dict = {}
 
@@ -103,22 +108,39 @@ class CudaVerifyEngine:
         return make_mesh(devices=[self._want_device] * (self._want_devices or 1))
 
     def warm(self) -> dict:
-        """Build the mesh, build or load the kernels, and launch once at
-        every window shape, rounded up to a multiple of the mesh size (an
-        all-pad window, which must verify True). Raises without CUDA when
-        ``device`` is None, and when more cards are asked for than exist.
+        """Build the mesh, build or load the kernels, and compile every
+        window shape, rounded up to a multiple of the mesh size: one captured
+        window per shard and slot, and one all-pad window through it, which
+        must verify True. A capture that fails raises. Raises without CUDA
+        when ``device`` is None, and when more cards are asked for than exist.
 
         Returns (and stores in ``self.stats``) the warmup accounting in the
-        JAX engine's keys: ``compiled`` counts the shapes warmed here,
-        ``aot_loaded`` is 0 (nothing is serialized), ``cold_compile_s`` is
-        the whole warmup (kernel build included), ``build_s`` the build or
-        load of the kernel library alone."""
+        JAX engine's keys: ``compiled`` counts the graphs captured here
+        (shapes x shards x slots), ``aot_loaded`` is 0 (a CUDA graph cannot
+        be serialized), ``cold_compile_s`` is the whole warmup (kernel
+        build, priming runs, captures and instantiations included),
+        ``build_s`` the build or load of the kernel library alone, ``slots``
+        the slots per shape, ``compile_s_by_shape`` each shape's priming
+        runs, captures, instantiations and all-pad window, and
+        ``graph_pool_bytes`` (``_by_shape``) the device memory each shape's
+        graphs hold: their pools and static buffers
+        (``torch.cuda.memory_reserved`` after the shape minus before, over
+        the mesh's cards, with unheld cached blocks freed first)."""
         from ..crypto import kernels
         from ..parallel import compile_sharded
 
         t0 = time.perf_counter()
         mesh = self._make_mesh()
         dev = mesh.devices[0]
+        cards = sorted({d for d in mesh.devices if d.type == "cuda"}, key=str)
+
+        def reserved() -> int:
+            # Cached blocks that nothing holds (an eager run's) are freed
+            # first, so that the difference is what the new graphs hold.
+            if cards:
+                torch.cuda.empty_cache()
+            return sum(torch.cuda.memory_reserved(d) for d in cards)
+
         with self._lock:
             stats = {
                 "devices": mesh.size,
@@ -130,6 +152,10 @@ class CudaVerifyEngine:
                 "warm_load_s": 0.0,
                 "cold_compile_s": 0.0,
                 "build_s": 0.0,
+                "slots": self._slots,
+                "graph_pool_bytes": 0,
+                "compile_s_by_shape": {},
+                "graph_pool_bytes_by_shape": {},
             }
             if dev.type == "cuda" and self._kernel is None:
                 stats["build_s"] = round(kernels.build()["build_s"], 3)
@@ -137,10 +163,14 @@ class CudaVerifyEngine:
             for want in self._want_shapes:
                 size = -(-want // mesh.size) * mesh.size
                 if size not in fns:
-                    fns[size] = compile_sharded(mesh, size, kernel=self._kernel)
-                    stats["compiled"] += 1
+                    t1, before = time.perf_counter(), reserved()
+                    fns[size] = compile_sharded(mesh, size, kernel=self._kernel, slots=self._slots)
+                    stats["compile_s_by_shape"][size] = round(time.perf_counter() - t1, 3)
+                    stats["graph_pool_bytes_by_shape"][size] = reserved() - before
+                    stats["compiled"] += self._slots * len(mesh.devices)
                     stats["shapes"].append(size)
             stats["cold_compile_s"] = round(time.perf_counter() - t0, 3)
+            stats["graph_pool_bytes"] = sum(stats["graph_pool_bytes_by_shape"].values())
             self._fns = fns
             self.device_count = mesh.size
             self.stats = stats
@@ -153,11 +183,11 @@ class CudaVerifyEngine:
     # -- serving -------------------------------------------------------------
 
     def verify(self, items: List[Item]) -> List[bool]:
-        """Pad to a warmed window shape and launch it over the mesh: each
-        shard stages its rows through pinned memory on a stream of its own
-        (and from a thread of its own when there are several), then the
-        verdicts are read back in order. Oversized batches chunk into
-        top-of-ladder windows; no shape is warmed at serving time."""
+        """Pad to a warmed window shape and replay it over the mesh in a free
+        slot: each shard stages its rows through its window's pinned buffers
+        and replays its graph on its own stream; the verdicts come back in
+        order. Oversized batches chunk into top-of-ladder windows; no shape
+        is captured at serving time."""
         if not items:
             return []
         if not self._fns:
@@ -214,7 +244,7 @@ class VerifyServiceDaemon:
         self._warm_thread: Optional[threading.Thread] = None
         self.engine = engine
         if engine is None and backend == "cuda":
-            self.engine = CudaVerifyEngine(shapes=warm_shapes, device=device, devices=devices)
+            self.engine = CudaVerifyEngine(shapes=warm_shapes, device=device, devices=devices, slots=inflight)
         self._fallback = fallback or cpu_backend
         self.fallback_items = 0
         self.service = VerifierService(

@@ -5,17 +5,20 @@ and the round step: the port of ``pbft_tpu/parallel/verifier.py``.
   over (one shard each; a device may repeat) and, across processes, the
   ``torch.distributed`` group it spans.
 - ``sharded_verify``: a window of B rows splits into equal row blocks, one
-  per local shard. Each shard is staged to its device and verified there by
+  per local shard. Each shard is verified on its device by
   ``ed25519.verify_kernel`` (the three CUDA kernels on a card, their plain
-  versions on the CPU). A card shard runs on a CUDA stream of its own, from
-  a worker thread of its own, so the host work of the shards overlaps.
-  Verdicts are gathered in row order on the mesh's first device.
-- ``quorum_certify``: each shard also counts its valid rows per round; the
-  shard counts are summed, then all-reduced over the mesh's group, so every
-  process reads the same ``counts`` and ``certified``. This is the only
-  computation that crosses shards.
+  versions on the CPU) in a window captured once per block shape
+  (``utils/graphs.py``: one CUDA graph with the copies in and out, replayed
+  per window on a stream of its own; the counterpart of ``jax.jit``). The
+  card shards of a window run at once; verdicts are gathered in row order
+  on the mesh's first device.
+- ``quorum_certify``: each shard's captured window also counts its valid
+  rows per round; the shard counts are summed, then all-reduced over the
+  mesh's group, so every process reads the same ``counts`` and
+  ``certified``. This is the only computation that crosses shards, and it
+  stays outside the graphs.
 - ``round_step``: certification plus the fold of the certified rounds into
-  an (8,) int32 state digest.
+  an (8,) int32 state digest (on the host, outside the graphs).
 
 The semantics are the JAX module's, edge cases included: a round id below 0
 counts for round 0 and one of R or more is dropped (``jnp.clip`` to
@@ -28,7 +31,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -36,6 +38,7 @@ import torch
 
 from ..crypto.ed25519 import verify_kernel
 from ..device import resolve_device
+from ..utils import graphs
 
 _STATE_MOD = 2**31 - 1
 
@@ -83,7 +86,7 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(tuple(devices))
 
 
-# -- shards --------------------------------------------------------------
+# -- shards ----------------------------------------------------------------
 
 
 def _blocks(x, k: int) -> list:
@@ -101,108 +104,91 @@ def _blocks(x, k: int) -> list:
     return [x[i * step : (i + 1) * step] for i in range(k)]
 
 
-def _stage(x, dev: torch.device, dtype=None, non_blocking: bool = True) -> torch.Tensor:
-    """One block onto its device, on the current stream. From host memory to
-    a card the copy goes through pinned memory; ``non_blocking=False`` waits
-    for it, so another stream may read the result."""
+def _stage(x, dev: torch.device) -> torch.Tensor:
+    """One block onto its device, copied before it returns. From host
+    memory to a card the copy goes through pinned memory."""
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    if dtype is not None:
-        x = x.to(dtype)
     if x.device == dev:
         return x
-    if dev.type == "cuda" and x.device.type == "cpu" and non_blocking:
-        return x.contiguous().pin_memory().to(dev, non_blocking=True)
+    if dev.type == "cuda" and x.device.type == "cpu":
+        x = x.contiguous().pin_memory()
     return x.to(dev)
 
 
-def _on_shard(dev: torch.device, fn):
-    """fn() for one shard: on a card under that device and on a stream of its
-    own, finished before returning."""
-    if dev.type != "cuda":
-        return fn()
-    stream = torch.cuda.Stream(device=dev)
-    with torch.cuda.device(dev), torch.cuda.stream(stream):
-        out = fn()
-    stream.synchronize()
-    return out
+def _host(x, dtype) -> torch.Tensor:
+    """An array or a tensor on any device -> a host tensor of ``dtype``."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().to(dtype)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
 
 
-def _run_shards(devices, fn, blocks) -> list:
-    """fn(dev, *block) for every shard; a shard's exception propagates.
-    Card shards run each from a worker thread of its own, so one shard's
-    host work overlaps another's device work. CPU shards (the plain path)
-    run one after another on the calling thread: PyTorch's CPU ops gain
-    nothing from it and contend (two 4-row shards in two threads took about
-    3x one shard's time on an 8-core host)."""
-    if len(devices) == 1 or all(d.type == "cpu" for d in devices):
-        return [_on_shard(dev, functools.partial(fn, dev, *blk)) for dev, blk in zip(devices, blocks)]
-    with ThreadPoolExecutor(len(devices)) as pool:
-        futures = [
-            pool.submit(_on_shard, dev, functools.partial(fn, dev, *blk))
-            for dev, blk in zip(devices, blocks)
-        ]
-        return [f.result() for f in futures]
+def _verify_specs(rows: int, *extra) -> list:
+    return [((rows, w), torch.uint8) for w in (32, 32, 64)] + list(extra)
 
 
-def _collect(parts, dev: torch.device) -> list:
-    """Shard outputs onto ``dev`` for the caller's stream. A shard's memory
-    was allocated on its own stream; it stays reserved until the caller's
-    stream has read it."""
-    out = []
-    for p in parts:
-        if p.device.type == "cuda":
-            p.record_stream(torch.cuda.current_stream(p.device))
-        out.append(p.to(dev))
-    return out
+def _run(pool_for, devices, arrays) -> list:
+    """One window over the mesh: the rows of each array split into one block
+    per shard, and a slot of ``pool_for(rows per shard)`` run on the blocks.
+    Returns each shard's outputs, in shard order, on the host."""
+    blocks = list(zip(*(_blocks(a, len(devices)) for a in arrays)))
+    with pool_for(len(blocks[0][0])).slot() as windows:
+        return graphs.run_shards(windows, blocks)
 
 
-def _concat(parts, dev: torch.device) -> torch.Tensor:
-    parts = _collect(parts, dev)
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+def _cached(key, capture, devices):
+    """Block shape -> the process's pool for ``key`` on ``devices``, its
+    windows captured at first use."""
+    return lambda rows: graphs.cached_pool(key + (devices, rows), functools.partial(capture, devices, rows))
 
 
 # -- verification --------------------------------------------------------
 
 
-def _verify_block(kernel, dev, pubs, msgs, sigs) -> torch.Tensor:
-    """One shard's rows staged onto ``dev`` and verified there (``kernel``
-    None: ``ed25519.verify_kernel``, looked up at the call)."""
-    return (kernel or verify_kernel)(*(_stage(a, dev, torch.uint8) for a in (pubs, msgs, sigs)))
+def _verify_block(kernel, pubs, msgs, sigs) -> torch.Tensor:
+    """One shard's verify (``kernel`` None: ``ed25519.verify_kernel``,
+    looked up at each call, so a capture takes the one in place then)."""
+    return (kernel or verify_kernel)(pubs, msgs, sigs)
+
+
+def _verdicts(pool_for, devices, pubs, msgs, sigs) -> torch.Tensor:
+    return torch.cat([out[0] for out in _run(pool_for, devices, (pubs, msgs, sigs))]).to(devices[0])
+
+
+def _capture_verify(kernel, devices, rows: int) -> tuple:
+    fn = functools.partial(_verify_block, kernel)
+    return graphs.capture_shards(fn, _verify_specs(rows), devices)
 
 
 def sharded_verify(mesh: Mesh, kernel=None):
     """(B,32),(B,32),(B,64) uint8 (host arrays, or per-shard lists from
     :func:`batch_sharding`) -> (B,) bool on the mesh's first device, B rows
-    of this process split into equal shards. ``kernel`` replaces
+    of this process split into equal shards. Each shard's block shape is captured at its
+    first use (``utils/graphs.py``) and replayed after; the card shards of a
+    window run at once, each on its window's stream. ``kernel`` replaces
     ``ed25519.verify_kernel`` (tests pass a cheap stand-in)."""
-    devices = mesh.devices
-    shard = functools.partial(_verify_block, kernel)
-
-    def verify(pubs, msgs, sigs):
-        blocks = list(zip(*(_blocks(a, len(devices)) for a in (pubs, msgs, sigs))))
-        return _concat(_run_shards(devices, shard, blocks), devices[0])
-
-    return verify
+    pool_for = _cached(("verify", kernel), functools.partial(_capture_verify, kernel), mesh.devices)
+    return functools.partial(_verdicts, pool_for, mesh.devices)
 
 
 def batch_sharding(mesh: Mesh):
     """The staging step of a window: a host array -> the list of its row
-    blocks on the mesh's devices, copied before it returns (the shards read
-    them on streams of their own)."""
+    blocks on the mesh's devices, copied before it returns."""
 
     def stage(x):
-        blocks = _blocks(x, len(mesh.devices))
-        return [_stage(b, dev, non_blocking=False) for b, dev in zip(blocks, mesh.devices)]
+        return [_stage(b, dev) for b, dev in zip(_blocks(x, len(mesh.devices)), mesh.devices)]
 
     return stage
 
 
-def compile_sharded(mesh: Mesh, size: int, kernel=None):
+def compile_sharded(mesh: Mesh, size: int, kernel=None, slots: int = 1):
     """The sharded verifier for windows of ``size`` rows (over all
-    processes), warmed: the kernels are built or loaded, and every shard
-    runs once on an all-pad window, which must verify True. Nothing is
-    serialized; the build directory is the only cache."""
+    processes), compiled ahead of traffic: ``slots`` slots, each one captured
+    window per shard (``utils/graphs.py``; on the CPU the function is kept),
+    with a pool of its own. A caller waits for a free slot when all are in
+    use; no shape or slot is captured after this returns. One all-pad window
+    runs through it and must verify True. A CUDA graph cannot be
+    serialized: the build directory of the kernels is the only cache."""
     from ..crypto import kernels
     from ..crypto.batch import pad_batch
 
@@ -210,9 +196,11 @@ def compile_sharded(mesh: Mesh, size: int, kernel=None):
         raise ValueError(f"window {size} not divisible by mesh size {mesh.size}")
     if kernel is None and any(d.type == "cuda" for d in mesh.devices):
         kernels.build()
-    fn = sharded_verify(mesh, kernel=kernel)
-    pubs, msgs, sigs, _ = pad_batch([], size // mesh.size * len(mesh.devices))
-    out = fn(pubs, msgs, sigs)
+    rows = size // mesh.size
+    pool = graphs.SlotPool(functools.partial(_capture_verify, kernel, mesh.devices, rows), limit=slots)
+    pool.fill(slots)
+    fn = functools.partial(_verdicts, lambda _: pool, mesh.devices)
+    out = fn(*pad_batch([], rows * len(mesh.devices))[:3])
     if kernel is None and not bool(out.all()):
         raise RuntimeError(f"pad triple rejected at window {size}")
     return fn
@@ -275,64 +263,85 @@ class QuorumResult:
     certified: torch.Tensor  # (R,) bool, counts >= thresholds
 
 
-def _all_reduce(counts: torch.Tensor, group) -> torch.Tensor:
-    """Sum the (R,) counts over the group (gloo reduces on the host)."""
+def _all_reduce(counts: torch.Tensor, group, dev: torch.device) -> torch.Tensor:
+    """Sum the (R,) host counts over the group: on the host for gloo, on
+    ``dev`` for NCCL."""
     if group is None:
         return counts
     import torch.distributed as dist
 
-    buf = counts.cpu() if dist.get_backend(group) == "gloo" else counts
+    if dist.get_backend(group) == "gloo":
+        dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
+        return counts
+    buf = counts.to(dev)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    return buf.to(counts.device)
+    return buf.cpu()
 
 
-def quorum_certify(mesh: Mesh, num_rounds: int):
-    """(pubs (B,32), msgs (B,32), sigs (B,64), round_ids (B,), thresholds
-    (R,)) -> :class:`QuorumResult`. Row i counts for round round_ids[i],
-    clipped to [0, R]; round R (the pad rows) is dropped. Each shard
-    verifies and counts its rows; the counts are summed over the local
-    shards and all-reduced over the mesh's group."""
-    R = num_rounds
+def _quorum_block(R: int, pubs, msgs, sigs, round_ids):
+    """One shard's part of a certification: its verdicts and its valid rows
+    counted per round (ids clipped to [0, R], segment R dropped)."""
+    ok = verify_kernel(pubs, msgs, sigs)
+    counts = torch.zeros(R + 1, dtype=torch.int32, device=ok.device)
+    counts.scatter_add_(0, round_ids.clamp(0, R).long(), ok.to(torch.int32))
+    return ok, counts[:R]
+
+
+def _capture_quorum(R: int, devices, rows: int) -> tuple:
+    fn = functools.partial(_quorum_block, R)
+    return graphs.capture_shards(fn, _verify_specs(rows, ((rows,), torch.int32)), devices)
+
+
+def _on(res: QuorumResult, dev: torch.device) -> QuorumResult:
+    return QuorumResult(*(t.to(dev) for t in (res.valid, res.counts, res.certified)))
+
+
+def _certify_host(mesh: Mesh, R: int):
+    """The certification with its results on the host."""
     devices = mesh.devices
-
-    def shard(dev, pubs, msgs, sigs, round_ids):
-        ok = _verify_block(None, dev, pubs, msgs, sigs)
-        rid = _stage(round_ids, dev, torch.int32).clamp(0, R).long()
-        counts = torch.zeros(R + 1, dtype=torch.int32, device=dev)
-        counts.scatter_add_(0, rid, ok.to(torch.int32))
-        return ok, counts[:R]
+    pool_for = _cached(("quorum", R), functools.partial(_capture_quorum, R), devices)
 
     def certify(pubs, msgs, sigs, round_ids, thresholds):
-        k = len(devices)
-        blocks = list(zip(*(_blocks(a, k) for a in (pubs, msgs, sigs, round_ids))))
-        results = _run_shards(devices, shard, blocks)
-        dev = devices[0]
-        valid = _concat([ok for ok, _ in results], dev)
-        counts = torch.stack(_collect([c for _, c in results], dev)).sum(0, dtype=torch.int32)
-        counts = _all_reduce(counts, mesh.group)
-        thresholds = _stage(thresholds, dev, torch.int32, non_blocking=False)
-        return QuorumResult(valid=valid, counts=counts, certified=counts >= thresholds)
+        results = _run(pool_for, devices, (pubs, msgs, sigs, round_ids))
+        valid = torch.cat([ok for ok, _ in results])
+        counts = torch.stack([c for _, c in results]).sum(0, dtype=torch.int32)
+        counts = _all_reduce(counts, mesh.group, devices[0])
+        return QuorumResult(valid=valid, counts=counts, certified=counts >= _host(thresholds, torch.int32))
 
     return certify
 
 
+def quorum_certify(mesh: Mesh, num_rounds: int):
+    """(pubs (B,32), msgs (B,32), sigs (B,64), round_ids (B,), thresholds
+    (R,)) -> :class:`QuorumResult` on the mesh's first device. Row i counts
+    for round round_ids[i], clipped to [0, R]; round R (the pad rows) is
+    dropped. Each shard verifies and counts its rows in one captured window
+    per (block shape, R), captured at first use; the counts are summed over
+    the local shards and all-reduced over the mesh's group outside the
+    graphs."""
+    certify = _certify_host(mesh, num_rounds)
+    return lambda *args: _on(certify(*args), mesh.devices[0])
+
+
 def round_step(mesh: Mesh, num_rounds: int):
     """(state (8,) int32, pubs, msgs, sigs, round_ids, thresholds) ->
-    (new_state, QuorumResult): certify every round of the window, then fold
-    the certified rounds' counts into the state digest exactly as the JAX
-    step does: cumsum of [state ‖ where(certified, counts, 0)] in int32
-    (wrapping), the last 8 entries, mod 2^31 - 1 (floored)."""
-    certify = quorum_certify(mesh, num_rounds)
+    (new_state, QuorumResult), on the mesh's first device: certify every
+    round of the window, then fold the certified rounds' counts into the
+    state digest on the host exactly as the JAX step does: cumsum of
+    [state ‖ where(certified, counts, 0)] in int32 (wrapping), the last 8
+    entries, mod 2^31 - 1 (floored)."""
+    certify = _certify_host(mesh, num_rounds)
+    dev = mesh.devices[0]
 
     def step(state, pubs, msgs, sigs, round_ids, thresholds):
         res = certify(pubs, msgs, sigs, round_ids, thresholds)
-        state = _stage(state, res.counts.device, torch.int32, non_blocking=False)
+        state = _host(state, torch.int32)
         contrib = torch.where(res.certified, res.counts, torch.zeros_like(res.counts))
         # torch.cumsum of int32 returns int64; the exact sum, taken back into
         # int32's two's-complement range, is the wrapped int32 running sum.
         run = torch.cumsum(torch.cat([state, contrib]).to(torch.int64), 0)
         run = (run + 2**31) % 2**32 - 2**31
         new_state = torch.remainder(run[-state.shape[0] :], _STATE_MOD).to(torch.int32)
-        return new_state, res
+        return new_state.to(dev), _on(res, dev)
 
     return step

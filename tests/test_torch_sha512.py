@@ -35,3 +35,25 @@ def test_sha512_batch_of_96_matches_jax_and_hashlib():
 def test_sha512_constants_match_jax():
     for name in ("_H0_HI", "_H0_LO", "_K_HI", "_K_LO"):
         np.testing.assert_array_equal(getattr(S, name), getattr(JS, name), err_msg=name)
+
+
+def test_second_call_on_a_device_uploads_nothing(monkeypatch):
+    """The padding block and the byte shifts are per-device constants: after
+    the first call on a device, sha512 makes no host-to-device upload (an
+    upload blocks the host and cannot be captured into a CUDA graph)."""
+    msg = torch.from_numpy(_RNG.integers(0, 256, size=(3, 96), dtype=np.uint8))
+    first = S.sha512(msg)
+    uploads = []
+
+    def counting(real):
+        def wrapper(*args, **kwargs):
+            uploads.append(real.__name__)
+            return real(*args, **kwargs)
+
+        return wrapper
+
+    for name in ("from_numpy", "tensor", "as_tensor"):
+        monkeypatch.setattr(torch, name, counting(getattr(torch, name)))
+    again = S.sha512(msg)
+    assert uploads == []
+    assert torch.equal(first, again)
