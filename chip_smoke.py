@@ -45,7 +45,21 @@ and no result line:
             nothing served by the fallback; each then timed in turns against
             a service with the same knobs whose backend runs the eager path;
             then one 5,000-item engine call across the 4,096 chunk boundary.
-6. parallel the third main path, pbft_tpu_torch.parallel, on B = 4,096
+6. surface  the service's operator surface, at the headline window
+            (flush_items=4096, flush_us=100000, the daemon's 5 shapes and
+            inflight=2, metrics on): (a) the native verify pool (C++ core,
+            built here with g++ unless build-core/ holds it) against the
+            oracle on the pool, its verifies/s beside os.cpu_count() and the
+            oracle's (64 items): the host's control arm; (b) while the daemon warms, one raw
+            1,024-triple request, served by the native pool (fallback_items
+            and the pool's own item count both grow by 1,024); (c) once
+            ready, four port ServiceVerifier clients (an f = 1 cluster's
+            replicas) send 8 requests of 1,024 triples each, none falls
+            back, launches = windows x shards; (d) /metrics and /status over
+            HTTP: the counters equal the status counts and the verdicts
+            served, the cold compile gauge the warm's, the series set the
+            manifest's; (e) that traffic with metrics on and off, in turns.
+7. parallel the third main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -66,7 +80,7 @@ and no result line:
             eager path, of round_step, and of verify_many on the same window;
             then one window of verify_many, (a) and (b) under torch.profiler
             (aten events, device busy ms, CUDA runtime calls).
-7. timing   CUDA-event times of each kernel's wrapper and of its plain
+8. timing   CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), the
             verify_many rate at 4096 and the service rates, beside the
@@ -482,6 +496,183 @@ def run_chunked(VS, K, pool, want, card: str) -> dict:
     emit("service", path="engine_chunked", items=len(big), correct=ok, card=card)
     check(ok, "chunked verify across the 4096 boundary is wrong")
     return check_launches(K, "engine_chunked", 2, engine.device_count)
+
+
+# ---------------------------------------------------------------------------
+# The operator surface: native pool, warm-time fallback, client, metrics.
+# ---------------------------------------------------------------------------
+
+
+def _scrape(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def _samples(text: str) -> dict:
+    """The {replica="service"} samples of a Prometheus scrape, by name."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or '{replica="service"}' not in line:
+            continue
+        name, value = line.split('{replica="service"} ')
+        out[name] = float(value)
+    return out
+
+
+def phase_surface(VS, K, pool, want, card: str) -> dict:
+    """(a)-(e) of the surface phase (module docstring); returns the launch
+    counts of (c)."""
+    from pbft_tpu_torch import native
+    from pbft_tpu_torch.crypto import ref
+    from pbft_tpu_torch.utils import trace_schema
+
+    # (a) The native pool. Small-order keys (the pool's last 12 rows) may
+    # pass its random-linear-combination windows where the oracle rejects
+    # them (a pair of cancelling torsion defects in one 256-item window, by
+    # design, as in the reference); every other row must agree.
+    t0 = time.perf_counter()
+    build = native.build()
+    check(native.available(), "the native core does not load")
+    setup_s = time.perf_counter() - t0
+    small = {i for i, (pub, _, sig) in enumerate(pool) if pub in SMALL_ORDER or sig[:32] in SMALL_ORDER}
+    honest = [i for i in range(len(pool)) if i not in small]
+    got = native.verify_batch(pool)
+    differ = [i for i in range(len(pool)) if got[i] != want[i]]
+    rng = np.random.default_rng(SEED + 100)
+    pick = rng.choice(honest, size=B)
+    t0 = time.perf_counter()
+    rate_got = native.verify_batch([pool[i] for i in pick])
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle_got = [ref.verify(*pool[i]) for i in pick[:64]]
+    oracle_per_s = 64 / (time.perf_counter() - t0)
+    native_run = {"built_here": build["built"], "build_or_load_s": setup_s,
+                  "threads": native.verify_threads(), "cpu_count": os.cpu_count(), "pool_items": len(pool),
+                  "rows_differing_from_oracle": len(differ), "small_order_rows": len(small), "batch": B,
+                  "secs": native_s, "verifies_per_s": B / native_s, "oracle_verifies_per_s": oracle_per_s,
+                  "native_over_oracle": B / native_s / oracle_per_s}
+    emit("surface", path="native_pool", **native_run, card=card)
+    check(set(differ) <= small, f"the native pool disagrees with the oracle on honest rows {sorted(set(differ) - small)}")
+    check(rate_got == [want[i] for i in pick] and oracle_got == rate_got[:64],
+          "the native pool disagrees with the oracle at 4,096")
+
+    # (b) One raw request while the daemon warms: the warm-time fallback.
+    pick = rng.choice(honest, size=1024)
+    request, request_want = [pool[i] for i in pick], [want[i] for i in pick]
+    served_false = 0
+    for attempt in range(2):  # a warm that ends before the request is sent: a second daemon
+        daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0, flush_items=4096, flush_us=100_000,
+                                        metrics_port=0)
+        daemon.start()
+        pool_items = native.verify_pool_stats()["items"]
+        st = VS.probe_status(daemon.address)
+        if st is not None and st[0] == VS.STATE_WARMING:
+            host, port = daemon.address.rsplit(":", 1)
+            t0 = time.perf_counter()
+            with socket.create_connection((host, int(port)), timeout=120) as sock:
+                verdicts = _request(sock, request)
+            warming_ms = (time.perf_counter() - t0) * 1e3
+            js = VS.probe_status_json(daemon.address)
+            if js["fallback_items"] == len(request):
+                break
+        daemon.stop()
+        daemon._warm_thread.join(600)  # its captures would count in (c)
+        daemon = None
+    check(daemon is not None, "the daemon finished its warm before a request reached it, twice")
+    try:
+        grown = native.verify_pool_stats()["items"] - pool_items
+        fallback = {"attempt": attempt + 1, "state_before": VS.STATE_NAMES[st[0]], "items": len(request),
+                    "fallback_items": js["fallback_items"], "host_verifier": js["host_verifier"],
+                    "native_pool_items_grown": grown,
+                    "equal_to_oracle": verdicts == request_want, "ms": warming_ms,
+                    "verifies_per_s": len(request) / warming_ms * 1e3}
+        emit("surface", path="warming_fallback", **fallback, card=card)
+        check(verdicts == request_want, "the warm-time fallback disagrees with the oracle")
+        check(grown >= len(request), f"the native pool verified {grown} items, not the request's {len(request)}")
+        check(js["host_verifier"] == "native", f"the daemon's host verifier is {js['host_verifier']}")
+        served_false += verdicts.count(False)
+
+        # (c) Four replica-side clients once the daemon is ready.
+        daemon._warm_thread.join(600)
+        check(daemon.warm_error is None and daemon.state == VS.STATE_READY,
+              f"the daemon did not warm: {daemon.warm_error!r}")
+        warm_stats = daemon.engine.stats
+        at_ready = VS.probe_status_json(daemon.address)
+        errors, bad, used, false_count = [], [], [], []
+
+        def client(cid: int):
+            crng = np.random.default_rng(SEED + 200 + cid)
+            sv = VS.ServiceVerifier(daemon.address)
+            try:
+                for _ in range(8):
+                    pick = crng.integers(0, len(pool), size=1024)
+                    got = sv.verify_batch([pool[i] for i in pick])
+                    if got != [want[i] for i in pick]:
+                        bad.append(cid)
+                    false_count.append(got.count(False))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+            finally:
+                used.append(sv.used_fallback)
+                sv.close()
+
+        K.reset_launches()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        secs = time.perf_counter() - t0
+        js = VS.probe_status_json(daemon.address)
+        windows = js["launches"] - at_ready["launches"]
+        clients = {"requests": js["requests"] - at_ready["requests"], "windows": windows,
+                   "used_fallback": used, "fallback_items": js["fallback_items"], "correct": not bad and not errors,
+                   "secs": secs, "verifies_per_s": 4 * 8 * 1024 / secs, "errors": errors[:3]}
+        emit("surface", path="service_verifier_clients", **clients, card=card)
+        check(clients["correct"] and not any(t.is_alive() for t in threads), "ServiceVerifier verdicts wrong")
+        check(used == [0, 0, 0, 0], f"clients fell back: {used}")
+        check(js["fallback_items"] == len(request), "the fallback served traffic after the warm")
+        launches = check_launches(K, "surface_service_verifier", windows, daemon.engine.device_count)
+        served_false += sum(false_count)
+
+        # (d) The scrape against the status.
+        mport = daemon.service.metrics_listen_port
+        text = _scrape(mport, "/metrics")
+        status = json.loads(_scrape(mport, "/status"))
+        m = _samples(text)
+        names = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+        ok = {
+            "items": m["pbft_verify_items_total"] == status["items"],
+            "batches": m["pbft_verify_batches_total"] == status["launches"],
+            "service_launches": m["pbft_verify_service_launches_total"] == status["launches"],
+            "batch_size_count": m["pbft_verify_batch_size_count"] == status["launches"],
+            "rejected": m["pbft_verify_rejected_total"] == served_false,
+            "cold_compile": m["pbft_verify_service_cold_compile_seconds"] == warm_stats["cold_compile_s"],
+            "series": names == set(trace_schema.METRIC_SCHEMAS),
+        }
+        emit("surface", path="metrics_scrape", status_items=status["items"], status_launches=status["launches"],
+             scraped={k: m[k] for k in ("pbft_verify_items_total", "pbft_verify_batches_total",
+                                        "pbft_verify_rejected_total", "pbft_verify_service_cold_compile_seconds")},
+             served_false=served_false, series_count=len(names), **ok, card=card)
+        check(all(ok.values()), f"the scrape disagrees with the status: {ok}")
+
+        # (e) Metrics on against off, in turns, on the same daemon.
+        rates = {"on": [], "off": []}
+        for rep in range(2):
+            for name in (("on", "off") if rep % 2 == 0 else ("off", "on")):
+                daemon.service.metrics_registry.set_enabled(name == "on")
+                r = drive_clients(daemon.address, VS, pool, want)
+                check(r["correct"], f"metrics {name}: service verdicts wrong")
+                rates[name].append(r["verifies_per_s"])
+        daemon.service.metrics_registry.set_enabled(True)
+        emit("timing", path="surface_metrics", compare="metrics_on_vs_off_in_turns", reps=2,
+             verifies_per_s=rates, on_over_off=float(np.mean(rates["on"]) / np.mean(rates["off"])), card=card)
+    finally:
+        daemon.stop()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1029,6 +1220,8 @@ def main() -> int:
         window_run = services["service_window_4096"]
         check(window_run["launches"] < window_run["requests"], "no coalescing in the 4,096-item window")
         launches["engine_chunked"] = run_chunked(VS, K, pool, want, card)
+        phase = "surface"
+        launches["surface_service_verifier"] = phase_surface(VS, K, pool, want, card)
         phase = "parallel"
         launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
         phase = "timing"

@@ -23,9 +23,13 @@ Modules, each named after its JAX counterpart:
   quorum certification, the round step
 - ``parallel.multihost``  processes on ``torch.distributed``
 - ``net.service``     the 128-byte-triple coalescing server (backends
-  ``cpu`` and ``cuda``)
+  ``cuda``, ``native`` and ``cpu``; ``/metrics``)
 - ``net.verify_service``  ``CudaVerifyEngine`` over a mesh of cards, the
-  daemon, the CLI
+  daemon, the CLI, the replica-side ``ServiceVerifier``
+- ``native``          the C++ core's verify pool (``ctypes``), built with
+  ``g++`` into ``build-core/``; ``host_batch_verify``, the host's verifier
+- ``utils.metrics``, ``utils.trace_schema``  the service's metrics registry,
+  scrape server and manifest
 - ``utils.graphs``    the compile step: each window shape captured once into
   a CUDA graph and replayed (no JAX counterpart file: ``jax.jit`` does it)
 - ``entry``           ``entry()`` and ``dryrun_multichip(n)``

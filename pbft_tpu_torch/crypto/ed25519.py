@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import field as F
 from . import kernels
 from . import ref
@@ -50,13 +51,20 @@ def _full(arr: np.ndarray, shape, device) -> torch.Tensor:
     return c.expand(tuple(shape) + (F.NLIMBS,)).contiguous()
 
 
-def identity(shape=(), device="cpu"):
+def _identity(shape, device: torch.device):
     z = _full(_ZERO, shape, device)
     o = _full(_ONE, shape, device)
     return (z, o, o, z)
 
 
-def base_point(shape=(), device="cpu"):
+def identity(shape=(), device=None):
+    """The neutral point (0, 1, 1, 0) on ``device`` (``None``: the card)."""
+    return _identity(shape, resolve_device(device))
+
+
+def base_point(shape=(), device=None):
+    """The base point B on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     return tuple(_full(c, shape, device) for c in (_BX, _BY, _ONE, _BT))
 
 
@@ -167,7 +175,7 @@ def shamir_ladder(s_bits, h_bits, a_neg):
     )  # index = 4h + s
     digits = kernels.ladder_digits(sb, hb)  # (g, 128), MSB-first
     rows = torch.arange(g, device=dev)
-    acc = identity((g,), dev)
+    acc = _identity((g,), dev)
     for k in range(128):
         d = digits[:, k]
         sel = tuple(e[d, rows] for e in entries)

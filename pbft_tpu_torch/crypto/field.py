@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ..device import resolve_device
+
 P = 2**255 - 19
 L = 2**252 + 27742317777372353535851937790883648493
 DELTA = L - 2**252
@@ -47,10 +49,12 @@ def limbs_to_int(arr) -> int:
     return int(sum(int(x) << (RADIX * i) for i, x in enumerate(a)))
 
 
-def from_numpy(x, device="cpu"):
+def from_numpy(x, device=None):
     """The JAX package's numpy limb arrays (or point tuples of them) -> the
-    port's tensors on ``device``. Integer arrays keep their width (int32
+    port's tensors on ``device`` (``None``: the card, see
+    ``device.resolve_device``). Integer arrays keep their width (int32
     limbs, uint8 bytes); anything array-like goes through ``np.asarray``."""
+    device = resolve_device(device)
     if isinstance(x, (tuple, list)):
         return tuple(from_numpy(c, device) for c in x)
     return torch.from_numpy(np.array(np.asarray(x))).to(device)

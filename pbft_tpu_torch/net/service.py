@@ -11,12 +11,22 @@ backend call, so the launch cost is paid once per window. With no
 accumulation knob set, the window is exactly "whatever queued while the
 previous launch ran".
 
-Backends by name: ``"cpu"`` (the RFC 8032 oracle, item by item) and
-``"cuda"`` (the batched verifier on the card, sharded over the local cards
-when there are several; raises at construction without CUDA).
+Backends by name: ``"cuda"`` (the default: the batched verifier on the
+card, sharded over the local cards when there are several; raises at
+construction without CUDA), ``"native"`` (the C++ core's verify pool,
+``pbft_tpu_torch.native``; raises at construction when the library cannot
+be built or loaded) and ``"cpu"`` (the RFC 8032 oracle, item by item).
 
-The Prometheus surface (``metrics_port``) is not ported yet: passing it
-raises ``NotImplementedError``.
+Metrics (``metrics_port``): the verify subset of the manifest
+(``utils/trace_schema.py``), labelled ``{replica="service"}``, served as
+Prometheus text on ``/metrics`` and the JSON status on ``/status``; the same
+counter, gauge and histogram updates at the same points as the JAX service,
+so that the two scrape alike. A port that cannot be bound raises from the
+constructor.
+
+CLI: ``python -m pbft_tpu_torch.net.service --backend cuda|native|cpu
+[--metrics-port N] ...`` serves a bare service (no warmup lifecycle; the
+daemon with one is ``verify_service.py``).
 """
 
 from __future__ import annotations
@@ -100,6 +110,15 @@ def cpu_backend(items: List[Item]) -> List[bool]:
     return [ref.verify(p, m, s) for p, m, s in items]
 
 
+def native_backend(items: List[Item]) -> List[bool]:
+    """The C++ core's verify pool on the host (``native.verify_batch``):
+    raises, never answers from the oracle, when the library cannot be built
+    or loaded."""
+    from .. import native
+
+    return native.verify_batch(items)
+
+
 class _Pending:
     __slots__ = ("items", "event", "verdicts", "error")
 
@@ -122,7 +141,7 @@ class VerifierService:
         host: str = "127.0.0.1",
         port: int = 0,
         unix_path: Optional[str] = None,
-        backend: Callable[[List[Item]], List[bool]] | str = "cpu",
+        backend: Callable[[List[Item]], List[bool]] | str = "cuda",
         coalesce: bool = True,
         flush_us: int = 0,
         flush_items: int = 0,
@@ -132,20 +151,25 @@ class VerifierService:
         status_provider: Optional[Callable[[], Tuple[int, int, int]]] = None,
         status_json_provider: Optional[Callable[[], dict]] = None,
     ):
-        if metrics_port is not None:
-            raise NotImplementedError("the metrics surface is not ported yet")
         backend_name = backend if isinstance(backend, str) else None
         if backend == "cuda":
             from ..device import resolve_device
 
             resolve_device(None)  # no card: raise here, not per request
+        elif backend == "native":
+            from .. import native
+
+            native.lib()  # no library: raise here, not per request
         if isinstance(backend, str):
-            backend = {"cpu": cpu_backend, "cuda": cuda_backend}[backend]
+            backend = {"cuda": cuda_backend, "native": native_backend, "cpu": cpu_backend}[backend]
         self.backend = backend
-        # A bare service owns no card and has no warmup lifecycle, so it
-        # reports "cpu-only"; the daemon (verify_service.py) overrides both
-        # providers with its live state machine.
-        self._status_provider = status_provider or (lambda: (STATE_CPU_ONLY, 0, 0))
+        # A bare service has no warmup lifecycle, so its status is settled
+        # here: "ready" for the card (it captures each shape at its first
+        # use), "cpu-only" for everything else (test callables included).
+        # The daemon (verify_service.py) overrides both providers with its
+        # live state machine.
+        state = STATE_READY if backend_name == "cuda" else STATE_CPU_ONLY
+        self._status_provider = status_provider or (lambda: (state, 0, 0))
         self._status_json_provider = status_json_provider or (
             lambda: {
                 "state": STATE_NAMES[self._status_provider()[0]],
@@ -170,6 +194,16 @@ class VerifierService:
         from ..utils.trace import Tracer
 
         self._tracer = Tracer(open(trace_path, "a") if trace_path else None)
+        # Metrics: disabled unless a scrape surface was asked for. Updated
+        # under self._cond (several launch threads finish at once with
+        # inflight > 1).
+        from ..utils.metrics import MetricsRegistry
+
+        self.metrics_registry = MetricsRegistry(labels={"replica": "service"}, enabled=metrics_port is not None)
+        if self.metrics_registry.enabled:
+            self.metrics_registry.preregister("service.py")
+        self._metrics_server = None
+        self.metrics_listen_port = 0
         self.batches = 0  # backend calls (launch windows)
         self.requests = 0  # wire requests (>= batches when coalescing)
         self.items = 0
@@ -227,6 +261,19 @@ class VerifierService:
 
             self.server = TcpServer((host, port), Handler)
             self.address = "%s:%d" % self.server.server_address
+        if metrics_port is not None:
+            from ..utils.metrics import start_metrics_server
+
+            try:
+                self._metrics_server = start_metrics_server(
+                    self.metrics_registry, metrics_port, status_fn=self._status_json_provider
+                )
+            except OSError:
+                self.server.server_close()
+                if self._tracer.sink is not None:
+                    self._tracer.sink.close()
+                raise
+            self.metrics_listen_port = self._metrics_server.server_address[1]
         self._thread: Optional[threading.Thread] = None
         self._dispatcher: Optional[threading.Thread] = None
         if self._coalesce:
@@ -243,7 +290,13 @@ class VerifierService:
                 self.requests += 1
                 self.batches += 1
                 self.items += len(items)
-            return self._checked(self.backend, items)
+            t0 = time.monotonic()
+            verdicts = self._checked(self.backend, items)
+            if self.metrics_registry.enabled:
+                with self._cond:
+                    # Uncoalesced, every request is its own one-client window.
+                    self._count_window(len(items), 1, time.monotonic() - t0, verdicts)
+            return verdicts
         p = _Pending(items)
         with self._cond:
             self.requests += 1
@@ -290,6 +343,10 @@ class VerifierService:
                         break
                     size += nxt
                     window.append(self._pending.pop(0))
+                if self.metrics_registry.enabled:  # items left queued past MAX_WINDOW
+                    self.metrics_registry.gauge("pbft_verify_queue_depth").set(
+                        sum(len(p.items) for p in self._pending)
+                    )
             # The window is formed before a launch slot is free: requests
             # that queue while it waits go to the next window.
             self._inflight_sem.acquire()
@@ -323,6 +380,20 @@ class VerifierService:
             raise ValueError(f"backend returned {got} verdicts for {len(items)} items")
         return verdicts
 
+    def _count_window(self, size: int, clients: int, secs: float, verdicts: Optional[List[bool]]) -> None:
+        """One launch window's metrics (the caller holds ``self._cond``); a
+        failed merged window (``verdicts`` None) rejects nothing yet."""
+        reg = self.metrics_registry
+        reg.counter("pbft_verify_batches_total").inc()
+        reg.counter("pbft_verify_items_total").inc(size)
+        reg.histogram("pbft_verify_batch_size").observe(size)
+        reg.histogram("pbft_verify_seconds").observe(secs)
+        reg.counter("pbft_verify_service_launches_total").inc()
+        reg.histogram("pbft_verify_service_window_size").observe(size)
+        reg.histogram("pbft_verify_service_coalesced_clients").observe(clients)
+        if verdicts is not None:
+            reg.counter("pbft_verify_rejected_total").inc(verdicts.count(False))
+
     def _dispatch_window(self, window: List[_Pending]) -> None:
         merged: List[Item] = []
         for p in window:
@@ -349,6 +420,10 @@ class VerifierService:
         with self._cond:
             self.batches += 1
             self.items += len(merged)
+            if self.metrics_registry.enabled:
+                secs = time.monotonic() - t0
+                self.metrics_registry.gauge("pbft_verify_inflight_age_seconds").set(round(secs, 6))
+                self._count_window(len(merged), len(window), secs, verdicts)
         if verdicts is None:
             for p in window:
                 t1 = time.monotonic()
@@ -392,6 +467,9 @@ class VerifierService:
         with self._cond:
             self._running = False
             self._cond.notify_all()
+        if self._metrics_server is not None:
+            self._metrics_server.shutdown()
+            self._metrics_server.server_close()
         self.server.shutdown()
         self.server.server_close()
         if self._thread:
@@ -409,3 +487,48 @@ class VerifierService:
             # Close only once the dispatcher is provably done with it.
             self._tracer.sink.close()
             self._tracer = type(self._tracer)()  # disabled from here on
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """CLI: a bare verifier service for a ``pbftd --verifier host:port``
+    cluster (the card by default)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="batch-verification service (no warmup lifecycle)")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=7600)
+    parser.add_argument("--unix", default=None, help="unix socket path instead of TCP")
+    parser.add_argument("--backend", default="cuda", choices=["cuda", "native", "cpu"])
+    parser.add_argument(
+        "--flush-us",
+        type=int,
+        default=0,
+        help="bounded accumulation: hold each window up to this many microseconds (0 = dispatch at once)",
+    )
+    parser.add_argument("--flush-items", type=int, default=0, help="...or until this many items are pending (0 = MAX_WINDOW)")
+    parser.add_argument("--trace", default=None, help="JSONL per-dispatch trace file")
+    parser.add_argument(
+        "--inflight", type=int, default=1, help="overlapped launches: ship window N+1 while N executes (1 = serial)"
+    )
+    parser.add_argument(
+        "--metrics-port", type=int, default=None, help="serve Prometheus text format on this port (0 = ephemeral)"
+    )
+    args = parser.parse_args(argv)
+    svc = VerifierService(
+        host=args.host,
+        port=args.port,
+        unix_path=args.unix,
+        backend=args.backend,
+        flush_us=args.flush_us,
+        flush_items=args.flush_items,
+        trace_path=args.trace,
+        inflight=args.inflight,
+        metrics_port=args.metrics_port,
+    )
+    metrics = f" metrics=127.0.0.1:{svc.metrics_listen_port}" if args.metrics_port is not None else ""
+    print(f"verifier service on {svc.address} backend={args.backend}{metrics}", flush=True)
+    svc.server.serve_forever()
+
+
+if __name__ == "__main__":  # pragma: no cover - CLI entry
+    main()

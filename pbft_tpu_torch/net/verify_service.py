@@ -1,5 +1,6 @@
 """The persistent verify service on the card: the port of
-``pbft_tpu/net/verify_service.py`` (engine, daemon, status probes, CLI).
+``pbft_tpu/net/verify_service.py`` (engine, daemon, status probes, the
+replica-side client, CLI).
 
 One long-lived process owns the H100: ``CudaVerifyEngine.warm()`` builds (or
 loads) the kernel library and captures one CUDA graph per pad-ladder window
@@ -11,12 +12,20 @@ colocated replica into one window per launch, each a replay.
 Readiness handshake: a request with item count 0 returns an 8-byte status
 record (state warming|ready|cpu-only, device count, warmed shape count);
 count 0xFFFFFFFF returns a length-prefixed JSON status. ``core/verifier.cc``
-RemoteVerifier and the JAX package's ServiceVerifier speak it unchanged.
-While the engine warms, the daemon serves traffic from its fallback (the
-oracle, per item) and counts what it served in ``fallback_items``. A failed
-warm is not hidden: it is reported in the JSON status, re-raised by
-``start(wait_ready=True)``, and ends the CLI with a nonzero exit. The
-``cpu-only`` state is reached only through ``backend="cpu"``.
+RemoteVerifier, the JAX package's ServiceVerifier and this module's
+:class:`ServiceVerifier` speak it unchanged. While the engine warms, the
+daemon serves traffic from its fallback (``native.host_batch_verify``: the
+C++ core's verify pool, built and loaded on a thread of its own from the
+daemon's construction, or the oracle until it loads or where the core
+cannot be built) and counts what it served in ``fallback_items``; the JSON
+status says which (``host_verifier``). A failed warm is not hidden: the
+daemon refuses traffic from then on (a client's request fails, and it
+verifies locally), the JSON status reports the state ``failed`` and the
+error (the 8-byte record, which has no such state, stays ``warming``, so
+that a client keeps verifying locally), ``start(wait_ready=True)``
+re-raises it, and the CLI ends with a nonzero exit. The ``cpu-only`` state
+is reached only through ``backend="native"`` or ``backend="cpu"``, which
+skip the engine.
 
 Cards and the host<->device pipeline: the engine shards every window over a
 mesh of the local cards (``parallel.compile_sharded``; ``--devices N`` keeps
@@ -26,8 +35,18 @@ stream (``utils/graphs.py``). The daemon passes its ``inflight`` as the slot
 count, so with ``inflight=2`` window N+1 stages and replays in its own slot
 while window N computes.
 
+Metrics (``metrics_port``): the service's series (``service.py``) and the
+daemon's (``verify_service.py``: the cold and warm compile gauges, set after
+a successful warm), on ``/metrics``, and the JSON status on ``/status``.
+
+Deliberate differences from the JAX daemon: no ``auto`` backend, which
+would flip to ``cpu-only`` when the card fails (a failed warm is raised);
+no ``--cache-dir``/``--export-dir``: the kernels are cached by a hash of
+their sources under ``build/``, and CUDA graphs cannot be serialized, so
+every start captures its graphs anew.
+
 CLI: ``python -m pbft_tpu_torch.net.verify_service --port 7600 [--devices N]
-[--device cpu]``.
+[--device cpu] [--backend cuda|native|cpu] [--metrics-port N]``.
 """
 
 from __future__ import annotations
@@ -38,8 +57,6 @@ import sys
 import threading
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
-
-import torch
 
 from .service import (  # noqa: F401 - re-exported API
     Item,
@@ -55,6 +72,7 @@ from .service import (  # noqa: F401 - re-exported API
     VerifierService,
     _recv_exact,
     cpu_backend,
+    native_backend,
     pack_status,
     unpack_status,
 )
@@ -126,6 +144,8 @@ class CudaVerifyEngine:
         graphs hold: their pools and static buffers
         (``torch.cuda.memory_reserved`` after the shape minus before, over
         the mesh's cards, with unheld cached blocks freed first)."""
+        import torch
+
         from ..crypto import kernels
         from ..parallel import compile_sharded
 
@@ -210,9 +230,12 @@ class CudaVerifyEngine:
 
 class VerifyServiceDaemon:
     """A :class:`~pbft_tpu_torch.net.service.VerifierService` that owns its
-    card's lifecycle: starts in ``warming`` (traffic served by the fallback),
-    warms the :class:`CudaVerifyEngine` on a background thread, and flips to
-    ``ready``. ``backend="cpu"`` skips the engine (state ``cpu-only``)."""
+    card's lifecycle: starts in ``warming`` (traffic served by the fallback,
+    by default ``native.host_batch_verify``), warms the
+    :class:`CudaVerifyEngine` on a background thread, and flips to
+    ``ready``. ``backend="native"`` (the C++ verify pool; raises here when
+    it cannot be built or loaded) and ``backend="cpu"`` (the oracle) skip
+    the engine and serve from the host (state ``cpu-only``)."""
 
     def __init__(
         self,
@@ -232,9 +255,7 @@ class VerifyServiceDaemon:
         engine: Optional[CudaVerifyEngine] = None,
         fallback: Optional[Callable[[List[Item]], List[bool]]] = None,
     ):
-        if metrics_port is not None:
-            raise NotImplementedError("the metrics surface is not ported yet")
-        if backend not in ("cuda", "cpu"):
+        if backend not in ("cuda", "native", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         self._t0 = time.monotonic()
@@ -245,7 +266,20 @@ class VerifyServiceDaemon:
         self.engine = engine
         if engine is None and backend == "cuda":
             self.engine = CudaVerifyEngine(shapes=warm_shapes, device=device, devices=devices, slots=inflight)
-        self._fallback = fallback or cpu_backend
+        if fallback is None:
+            if backend == "native":
+                from .. import native
+
+                native.lib()  # no library: raise here, not per request
+                fallback = native_backend
+            elif backend == "cpu":
+                fallback = cpu_backend
+            else:
+                from .. import native
+
+                fallback = native.host_batch_verify
+                native.load_in_background()
+        self._fallback = fallback
         self.fallback_items = 0
         self.service = VerifierService(
             host=host,
@@ -256,11 +290,15 @@ class VerifyServiceDaemon:
             flush_items=flush_items,
             trace_path=trace_path,
             inflight=inflight,
+            metrics_port=metrics_port,
             status_provider=self._status,
             status_json_provider=self.status_json,
         )
         if max_window:
             self.service.MAX_WINDOW = max_window
+        if self.service.metrics_registry.enabled:
+            # The compile gauges exist from the first scrape.
+            self.service.metrics_registry.preregister("verify_service.py")
 
     # -- state machine -------------------------------------------------------
 
@@ -289,10 +327,19 @@ class VerifyServiceDaemon:
             len(eng.warmed_sizes) if eng else 0,
         )
 
+    def _host_verifier(self) -> str:
+        """What the fallback answers with: ``native``, ``oracle``, or
+        ``custom`` for a caller's callable."""
+        from .. import native
+
+        if self._fallback is native.host_batch_verify:
+            return native.host_verifier()
+        return {native_backend: "native", cpu_backend: "oracle"}.get(self._fallback, "custom")
+
     def status_json(self) -> dict:
         eng = self.engine
         out = {
-            "state": self.state_name,
+            "state": "failed" if self.warm_error is not None else self.state_name,
             "devices": eng.device_count if eng else 0,
             "warmed_shapes": list(eng.warmed_sizes) if eng else [],
             "backend": self.backend,
@@ -301,6 +348,7 @@ class VerifyServiceDaemon:
             "launches": self.service.batches,
             "items": self.service.items,
             "fallback_items": self.fallback_items,
+            "host_verifier": self._host_verifier(),
         }
         if eng and eng.stats:
             out["warm_stats"] = eng.stats
@@ -311,20 +359,31 @@ class VerifyServiceDaemon:
     # -- serving -------------------------------------------------------------
 
     def _dispatch(self, items: List[Item]) -> List[bool]:
-        """The service backend: the warmed engine when ready, the fallback
-        otherwise (a request never waits on warmup)."""
-        if self.state == STATE_READY:
-            return self.engine.verify(items)
+        """The service backend: the warmed engine when ready; the fallback
+        while warming (a request never waits on warmup), counted in
+        ``fallback_items``; the host backend when cpu-only. Raises once the
+        warm has failed: a dead card is never served as a slow warm."""
         with self._state_lock:
-            self.fallback_items += len(items)
+            state, error = self._state, self.warm_error
+            if state == STATE_WARMING and error is None:
+                self.fallback_items += len(items)
+        if state == STATE_READY:
+            return self.engine.verify(items)
+        if error is not None:
+            raise RuntimeError(f"verify engine failed to warm: {error!r}")
         return self._fallback(items)
 
     def _warm(self) -> None:
         try:
-            self.engine.warm()
+            stats = self.engine.warm()
         except Exception as e:  # noqa: BLE001 - reported, never hidden
-            self.warm_error = e
+            with self._state_lock:
+                self.warm_error = e
             return
+        reg = self.service.metrics_registry
+        if reg.enabled:
+            reg.gauge("pbft_verify_service_cold_compile_seconds").set(stats["cold_compile_s"])
+            reg.gauge("pbft_verify_service_warm_compile_seconds").set(stats["warm_load_s"])
         self._set_state(STATE_READY)
 
     def start(self, wait_ready: bool = False, timeout: float = 900.0):
@@ -348,7 +407,7 @@ class VerifyServiceDaemon:
         self.service.stop()
 
 
-# -- status probes -----------------------------------------------------------
+# -- status probes and the replica-side client --------------------------------
 
 
 def _dial(target: str, timeout: float) -> socket.socket:
@@ -388,6 +447,128 @@ def probe_status_json(target: str, timeout: float = 2.0) -> Optional[dict]:
         return None
 
 
+class ServiceVerifier:
+    """The replica-side client of the daemon (the counterpart of
+    ``core/verifier.cc`` RemoteVerifier, and of the JAX package's
+    ServiceVerifier): dial the colocated verify service with a short connect
+    deadline, consume the readiness handshake, and ship (pub, digest, sig)
+    batches over the 128-byte protocol. Any failure (connect refused, the
+    service warming, the link killed mid-stream, a short reply) verifies
+    that batch with ``fallback`` (by default ``native.host_batch_verify``)
+    and backs off reconnecting for ``retry_s``, so the replica's verify loop
+    never stalls on the service's lifecycle. ``used_fallback`` counts the
+    batches the fallback verified; ``verify_batch`` never raises on the
+    service's account."""
+
+    def __init__(
+        self,
+        target: str,
+        fallback: Optional[Callable[[List[Item]], List[bool]]] = None,
+        connect_timeout: float = 0.25,
+        io_timeout: float = 30.0,
+        retry_s: float = 1.0,
+    ):
+        self.target = target
+        if fallback is None:
+            from .. import native
+
+            fallback = native.host_batch_verify
+            native.load_in_background()
+        self._fallback = fallback
+        self._connect_timeout = connect_timeout
+        self._io_timeout = io_timeout
+        self._retry_s = retry_s
+        self._sock: Optional[socket.socket] = None
+        self._lock = threading.Lock()
+        self._retry_after = 0.0
+        self.state: Optional[int] = None
+        self.devices = 0
+        self.used_fallback = 0
+
+    def _drop(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+        self.state = None
+        self._retry_after = time.monotonic() + self._retry_s
+
+    def _probe(self, sock: socket.socket) -> Optional[Tuple[int, int, int]]:
+        try:
+            sock.sendall(STATUS_PROBE.to_bytes(4, "big"))
+            return unpack_status(_recv_exact(sock, STATUS_LEN))
+        except (OSError, ConnectionError):
+            return None
+
+    def _ensure_connected(self) -> bool:
+        """Whether the service takes this batch; (re)connects and re-probes
+        a warming service at the retry cadence. Ready and cpu-only links are
+        settled."""
+        if self._sock is not None:
+            if self.state != STATE_WARMING:
+                return self.state in (STATE_READY, STATE_CPU_ONLY)
+            if time.monotonic() < self._retry_after:
+                return False
+            self._retry_after = time.monotonic() + self._retry_s
+            st = self._probe(self._sock)
+            if st is None:
+                self._drop()
+                return False
+            self.state, self.devices, _ = st
+            return self.state in (STATE_READY, STATE_CPU_ONLY)
+        if time.monotonic() < self._retry_after:
+            return False
+        try:
+            sock = _dial(self.target, self._connect_timeout)
+        except OSError:
+            self._retry_after = time.monotonic() + self._retry_s
+            return False
+        sock.settimeout(self._io_timeout)
+        st = self._probe(sock)
+        if st is None:
+            sock.close()
+            self._retry_after = time.monotonic() + self._retry_s
+            return False
+        self._sock = sock
+        self.state, self.devices, _ = st
+        # Warming: keep the link (the handshake was answered) but verify
+        # locally until a later probe reports ready.
+        return self.state in (STATE_READY, STATE_CPU_ONLY)
+
+    def verify_batch(self, items: List[Item]) -> List[bool]:
+        if not items:
+            return []
+        with self._lock:
+            if not self._ensure_connected():
+                self.used_fallback += 1
+                return self._fallback(items)
+            try:
+                payload = b"".join(p + m + s for p, m, s in items)
+                self._sock.sendall(len(items).to_bytes(4, "big") + payload)
+                out = _recv_exact(self._sock, len(items))
+                return [bool(b) for b in out]
+            except (OSError, ConnectionError):
+                # Killed mid-stream: drop the link (partial verdict bytes
+                # must never pair with the next batch) and verify this batch
+                # locally.
+                self._drop()
+                self.used_fallback += 1
+                return self._fallback(items)
+
+    __call__ = verify_batch
+
+    def close(self) -> None:
+        with self._lock:
+            if self._sock is not None:
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass
+                self._sock = None
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     """The verify service CLI for a ``pbftd --verifier host:port`` cluster."""
     import argparse
@@ -399,9 +580,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument(
         "--backend",
         default="cuda",
-        choices=["cuda", "cpu"],
-        help="cuda warms the engine (oracle fallback while warming); cpu "
-        "serves the oracle only (state cpu-only)",
+        choices=["cuda", "native", "cpu"],
+        help="cuda warms the engine (the native verify pool serves while it "
+        "warms); native serves the C++ verify pool only, cpu the oracle only "
+        "(state cpu-only)",
     )
     parser.add_argument(
         "--device",
@@ -431,6 +613,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="overlapped launches; 2 = stage window N+1 while N computes",
     )
     parser.add_argument("--trace", default=None, help="JSONL per-dispatch trace file")
+    parser.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        help="serve Prometheus text on /metrics and the JSON status on /status at this port (0 = ephemeral)",
+    )
     parser.add_argument("--wait-ready", action="store_true", help="block until warm before announcing")
     args = parser.parse_args(argv)
     shapes = [int(s) for s in args.warm_shapes.split(",") if s] if args.warm_shapes else None
@@ -447,6 +635,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         flush_items=args.flush_items,
         inflight=args.inflight,
         trace_path=args.trace,
+        metrics_port=args.metrics_port,
     )
     try:
         daemon.start(wait_ready=args.wait_ready)
@@ -454,7 +643,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps({"ev": "verify_service_failed", "error": str(e)}), flush=True)
         daemon.stop()
         return 1
-    print(json.dumps({"ev": "verify_service_listening", "addr": daemon.address, **daemon.status_json()}), flush=True)
+    listening = {"ev": "verify_service_listening", "addr": daemon.address}
+    if args.metrics_port is not None:
+        listening["metrics_port"] = daemon.service.metrics_listen_port
+    print(json.dumps({**listening, **daemon.status_json()}), flush=True)
     try:
         state = daemon.state
         while daemon.warm_error is None:

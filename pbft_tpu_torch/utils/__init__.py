@@ -1,2 +1,3 @@
-"""Utilities of the port: a copy of the tracer the verify service needs, and
-the compile step (``graphs``: CUDA graphs of fixed window shapes)."""
+"""Utilities of the port: copies of the tracer, the metrics registry and the
+schema manifest that the verify service needs, and the compile step
+(``graphs``: CUDA graphs of fixed window shapes)."""

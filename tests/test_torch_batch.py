@@ -22,8 +22,8 @@ from pbft_tpu_torch.net import service as SV
 
 
 def _same(port, jax_side, what):
-    want = F.from_numpy(jax_side)
-    got = F.from_numpy(port)
+    want = F.from_numpy(jax_side, "cpu")
+    got = F.from_numpy(port, "cpu")
     if isinstance(want, tuple):
         assert len(got) == len(want), what
         for g, w in zip(got, want):

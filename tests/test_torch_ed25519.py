@@ -88,8 +88,8 @@ def test_points_compress_decompress_and_identity():
     a = ref.point_decompress(pub)
     ok, pt = E.decompress(torch.from_numpy(np.frombuffer(pub, np.uint8).copy()).unsqueeze(0))
     assert bool(ok.all())
-    ident = E.identity((1,))
-    base = E.base_point((1,))
+    ident = E.identity((1,), "cpu")
+    base = E.base_point((1,), "cpu")
     enc = torch.cat(
         [
             E.compress(pt),

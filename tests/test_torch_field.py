@@ -117,10 +117,10 @@ def test_field_ops_match_jax_limbs_and_bigints():
 def test_bytes_roundtrip_and_from_numpy():
     v = secrets.randbelow(F.P)
     raw = np.frombuffer(int.to_bytes(v, 32, "little"), np.uint8)
-    limbs = F.bytes_to_limbs(F.from_numpy(raw))
+    limbs = F.bytes_to_limbs(F.from_numpy(raw, "cpu"))
     assert limbs.dtype == torch.int32
     assert bytes(F.limbs_to_bytes(limbs).numpy()) == int.to_bytes(v, 32, "little")
-    pt = F.from_numpy((np.asarray(JF.limbs_const(v)), jnp.asarray(JF.limbs_const(1))))
+    pt = F.from_numpy((np.asarray(JF.limbs_const(v)), jnp.asarray(JF.limbs_const(1))), "cpu")
     assert isinstance(pt, tuple) and all(c.dtype == torch.int32 for c in pt)
     assert F.limbs_to_int(pt[0]) == v
 

@@ -9,6 +9,8 @@ import os
 import pytest
 import torch
 
+from pbft_tpu_torch.crypto import ed25519 as E
+from pbft_tpu_torch.crypto import field as F
 from pbft_tpu_torch.device import resolve_device
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,7 +30,9 @@ def _forbidden(name: str) -> bool:
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
-    assert len(files) >= 14, files
+    assert len(files) >= 17, files
+    for name in ("native.py", "utils/metrics.py", "utils/trace_schema.py", "net/verify_service.py"):
+        assert os.path.join(_REPO, "pbft_tpu_torch", name) in files, name
     bad = []
     for path in files:
         with open(path) as fh:
@@ -53,3 +57,12 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_constructors_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: F.from_numpy(F.limbs_const(1)), lambda: E.identity((2,)), lambda: E.base_point((2,))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert F.from_numpy(F.limbs_const(1), "cpu").device.type == "cpu"
+    assert all(c.device.type == "cpu" and c.shape == (2, 32) for c in E.identity((2,), "cpu") + E.base_point((2,), "cpu"))

@@ -353,7 +353,16 @@ def test_failed_warm_is_raised_not_hidden():
             raised = "no card" in str(e)
         assert raised
         js = probe_status_json(daemon.address)
-        assert js["state"] == "warming" and "no card" in js["warm_error"]
+        assert js["state"] == "failed" and "no card" in js["warm_error"]
+        # The 8-byte record has no failed state: it keeps a client verifying
+        # locally. A request sent anyway is refused, not served as warm-time
+        # traffic.
+        assert probe_status(daemon.address)[0] == STATE_WARMING
+        host, port = daemon.address.rsplit(":", 1)
+        with socket.create_connection((host, int(port)), timeout=10) as sock:
+            sock.sendall((1).to_bytes(4, "big") + b"".join(_item(1, True)))
+            assert sock.recv(1) == b""
+        assert probe_status_json(daemon.address)["fallback_items"] == 0
     finally:
         daemon.stop()
 
