@@ -59,7 +59,23 @@ and no result line:
             HTTP: the counters equal the status counts and the verdicts
             served, the cold compile gauge the warm's, the series set the
             manifest's; (e) that traffic with metrics on and off, in turns.
-7. parallel the third main path, pbft_tpu_torch.parallel, on B = 4,096
+7. protocol the third main path, the protocol: BASELINE's configs 0-4
+            (pbft_tpu_torch.bench.harness CONFIGS: n = 4, 4, 7, 16 and 31
+            pbftd replicas, their clients and pipelines, config 4's
+            Byzantine signer) at full width through the port's harness, on
+            the native arm (pbftd's own C++ verify pools) and the native-cuda
+            arm (every replica -> one daemon on the card, warmed before the
+            config's first run and shared by its runs), in turns (configs 1
+            and 2 two turns per arm), each at the harness's own depth
+            (requests). Every row printed with the card.
+            Every request commits with f + 1 matching validly signed
+            replies; on the card's arm nothing is verified on the host (no
+            fallback item after the warm, no verify deadline fired in the
+            metrics or traces, no view change) and the daemon's items equal
+            the replicas' sig_verified + sig_rejected; config 4's corrupted
+            signatures are rejected on the card; launches = the daemon's
+            windows x shards per config.
+8. parallel the fourth main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -80,14 +96,15 @@ and no result line:
             eager path, of round_step, and of verify_many on the same window;
             then one window of verify_many, (a) and (b) under torch.profiler
             (aten events, device busy ms, CUDA runtime calls).
-8. timing   CUDA-event times of each kernel's wrapper and of its plain
+9. timing   CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), the
             verify_many rate at 4096 and the service rates, beside the
             card's name and power limit.
 
 Launch counts are set to 0 just before each path (verify_many; each service
-run, after its warmup; the chunked call; each parallel path, in each of its
+run, after its warmup; the chunked call; each protocol config, after its
+daemon's warmup; each parallel path, in each of its
 processes) and read just after it: every kernel must have launched exactly
 once per window per shard that the path formed. A replay counts the
 launches its graph recorded at capture; every path's shapes are captured
@@ -676,6 +693,101 @@ def phase_surface(VS, K, pool, want, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The protocol path: pbftd clusters on their own pools and on the card.
+# ---------------------------------------------------------------------------
+
+# Turns per arm, by config index (each turn runs both arms, the order
+# alternating). Every config runs at the harness's own depth.
+PROTOCOL_TURNS = {0: 1, 1: 2, 2: 2, 3: 1, 4: 1}
+
+
+def _trace_events(trace_dir: str, ev: str) -> int:
+    needle = f'"ev":"{ev}"'
+    count = 0
+    for name in os.listdir(trace_dir):
+        if name.startswith("replica-") and name.endswith(".jsonl"):
+            with open(os.path.join(trace_dir, name)) as fh:
+                count += sum(needle in line for line in fh)
+    return count
+
+
+def phase_protocol(K, VS, card: str) -> dict:
+    """BASELINE's configs 0-4 (pbft_tpu_torch.bench.harness CONFIGS) at
+    their full replica counts as pbftd clusters, each on the native arm
+    (pbftd's own C++ verify pools) and on the native-cuda arm (every replica
+    -> one coalescing daemon on the card, warmed before the config's first
+    run), in turns. Each run's row is printed. Checks: every driven request
+    commits with f + 1 matching validly signed replies (the harness raises
+    otherwise); on the card's arm nothing is verified on the host: the
+    daemon's fallback served no item after the warm, no replica's verify
+    deadline fired (metrics line and trace), no view change ran (whose
+    evidence pbftd verifies in-process), and the daemon's items equal the
+    replicas' sig_verified + sig_rejected over the cluster's life; config 4's
+    Byzantine signatures are rejected on the card; the kernels launched
+    once per daemon window per shard. Returns the launch counts by config."""
+    import dataclasses
+    import tempfile
+
+    from pbft_tpu_torch import native
+    from pbft_tpu_torch.bench import harness as H
+
+    native.build()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-traces-") as traces:
+        for index, (name, n, _clients, _requests, byzantine) in enumerate(H.CONFIGS):
+            root = os.path.join(traces, f"cfg{index}")
+            t0 = time.perf_counter()
+            daemon = H.start_daemon("cuda", trace_dir=root)
+            warm_s = time.perf_counter() - t0
+            try:
+                ready = VS.probe_status_json(daemon.address)
+                K.reset_launches()  # after the warm's captures and all-pad windows
+                for turn in range(PROTOCOL_TURNS[index]):
+                    for arm in ("native", "native-cuda") if turn % 2 == 0 else ("native-cuda", "native"):
+                        trace_dir = os.path.join(root, f"{arm}-{turn}")
+                        if arm == "native":
+                            res = H.run_native_config(index, trace_dir=trace_dir)
+                        else:
+                            res = H.run_native_cuda_config(index, trace_dir=trace_dir, daemon=daemon)
+                        acc = res.accounting
+                        deadline_events = _trace_events(trace_dir, "verify_deadline_fired")
+                        emit("protocol", config_index=index, arm=arm, turn=turn, row=dataclasses.asdict(res),
+                             deadline_events_in_traces=deadline_events,
+                             cpu_count=os.cpu_count(), card=card)
+                        check(res.replicas == n and acc["view_changes_started"] == 0,
+                              f"config {index} {arm}: {res.replicas} replicas, {acc['view_changes_started']} view changes")
+                        check(deadline_events == 0 and acc["verify_deadline_fired"] == 0,
+                              f"config {index} {arm}: a replica's verify deadline fired")
+                        if byzantine:
+                            check(acc["replica_sig_rejected"] > 0, f"config {index} {arm}: no signature rejected")
+                        if arm == "native-cuda":
+                            check(res.service_fallback_items == 0 and acc["service_fallback_items"] == 0,
+                                  f"config {index}: the daemon's fallback served traffic after the warm")
+                            check(acc["service_items"] == acc["replica_sig_checks"],
+                                  f"config {index}: the daemon verified {acc['service_items']} items, the "
+                                  f"replicas checked {acc['replica_sig_checks']}")
+                            check(res.service_windows > 0 and (res.service_rejected > 0) == byzantine,
+                                  f"config {index}: {res.service_windows} windows, {res.service_rejected} rejected")
+                end = VS.probe_status_json(daemon.address)
+            finally:
+                daemon.stop()
+            check(end["fallback_items"] == ready["fallback_items"] == 0, f"config {index}: fallback items {end}")
+            # Each window's host-clock seconds in the daemon's trace (the
+            # warm's all-pad windows run before the trace sink sees traffic).
+            with open(os.path.join(f"{root}-service", "service.jsonl")) as fh:
+                secs = sorted(e["secs"] for e in map(json.loads, fh) if e["ev"] == "verify_batch")
+            emit("protocol", config_index=index, daemon_warm_s=warm_s, warm_stats=ready["warm_stats"],
+                 windows=end["launches"] - ready["launches"], items=end["items"] - ready["items"],
+                 rejected=end["rejected"] - ready["rejected"], traced_windows=len(secs),
+                 window_ms={"mean": 1e3 * sum(secs) / len(secs), "p50": 1e3 * secs[len(secs) // 2],
+                            "p95": 1e3 * secs[int(0.95 * len(secs))], "max": 1e3 * secs[-1]},
+                 window_busy_s=sum(secs), card=card)
+            launches[f"protocol_cfg{index}"] = check_launches(
+                K, f"protocol_cfg{index}", end["launches"] - ready["launches"], daemon.engine.device_count)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The compile step: captured windows against the eager path.
 # ---------------------------------------------------------------------------
 
@@ -1222,6 +1334,8 @@ def main() -> int:
         launches["engine_chunked"] = run_chunked(VS, K, pool, want, card)
         phase = "surface"
         launches["surface_service_verifier"] = phase_surface(VS, K, pool, want, card)
+        phase = "protocol"
+        launches.update(phase_protocol(K, VS, card))
         phase = "parallel"
         launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
         phase = "timing"

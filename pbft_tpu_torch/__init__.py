@@ -33,4 +33,12 @@ Modules, each named after its JAX counterpart:
 - ``utils.graphs``    the compile step: each window shape captured once into
   a CUDA graph and replayed (no JAX counterpart file: ``jax.jit`` does it)
 - ``entry``           ``entry()`` and ``dryrun_multichip(n)``
+- ``consensus.messages``, ``consensus.config``  the client request and reply
+  and ``network.json``, byte-identical to the JAX package's
+- ``net.launcher``, ``net.client``  a localhost ``pbftd`` cluster and the
+  PBFT client (f + 1 signed replies)
+- ``utils.waterfall`` the per-request latency join of client and replica
+  traces
+- ``bench.harness``   BASELINE's configs 0-4 as ``pbftd`` clusters, on their
+  own verify pools (``native``) or on the card's daemon (``native-cuda``)
 """

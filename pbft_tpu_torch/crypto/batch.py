@@ -59,11 +59,17 @@ def pad_batch(items, size: int):
     """items: list of (pub32, msg32, sig64) bytes -> padded uint8 arrays.
 
     Returns (pubs, msgs, sigs, n) where slots >= n are the known-good pad
-    triple (they verify True and are sliced off by the caller).
+    triple (they verify True and are sliced off by the caller). Raises
+    ValueError on an item of other lengths, as the reference's row by row
+    assignment does: the rows are cut out of one joined buffer, so a short
+    field would otherwise shift its neighbours' bytes into its row.
     """
     n = len(items)
     if n > size:
         raise ValueError(f"batch of {n} exceeds padded size {size}")
+    for i, (pub, msg, sig) in enumerate(items):
+        if len(pub) != 32 or len(msg) != 32 or len(sig) != 64:
+            raise ValueError(f"item {i} is not a (pub32, msg32, sig64) triple: {len(pub)}, {len(msg)}, {len(sig)} bytes")
     pubs = np.tile(_PAD_PUB, (size, 1))
     msgs = np.tile(_PAD_MSG_ARR, (size, 1))
     sigs = np.tile(_PAD_SIG, (size, 1))

@@ -129,6 +129,12 @@ class _Pending:
         self.error: Optional[Exception] = None
 
 
+# Every replica of a cluster dials the service at its start; socketserver's
+# backlog of 5 drops the dials of a larger cluster past pbftd's 250 ms
+# connect deadline, and such a replica verifies on its own CPU pool.
+_LISTEN_BACKLOG = 128
+
+
 class VerifierService:
     """Threaded TCP (or unix-domain) batch-verification server."""
 
@@ -178,6 +184,7 @@ class VerifierService:
                 "requests": self.requests,
                 "launches": self.batches,
                 "items": self.items,
+                "rejected": self.rejected,
             }
         )
         # Bounded accumulation: after the first request queues, wait until
@@ -207,6 +214,8 @@ class VerifierService:
         self.batches = 0  # backend calls (launch windows)
         self.requests = 0  # wire requests (>= batches when coalescing)
         self.items = 0
+        # False verdicts of launched windows (pbft_verify_rejected_total).
+        self.rejected = 0
         self._coalesce = coalesce
         self._cond = threading.Condition()
         self._pending: List[_Pending] = []
@@ -250,6 +259,7 @@ class VerifierService:
 
             class UnixServer(socketserver.ThreadingUnixStreamServer):
                 daemon_threads = True
+                request_queue_size = _LISTEN_BACKLOG
 
             self.server = UnixServer(unix_path, Handler)
             self.address = unix_path
@@ -258,6 +268,7 @@ class VerifierService:
             class TcpServer(socketserver.ThreadingTCPServer):
                 daemon_threads = True
                 allow_reuse_address = True
+                request_queue_size = _LISTEN_BACKLOG
 
             self.server = TcpServer((host, port), Handler)
             self.address = "%s:%d" % self.server.server_address
@@ -292,8 +303,9 @@ class VerifierService:
                 self.items += len(items)
             t0 = time.monotonic()
             verdicts = self._checked(self.backend, items)
-            if self.metrics_registry.enabled:
-                with self._cond:
+            with self._cond:
+                self.rejected += verdicts.count(False)
+                if self.metrics_registry.enabled:
                     # Uncoalesced, every request is its own one-client window.
                     self._count_window(len(items), 1, time.monotonic() - t0, verdicts)
             return verdicts
@@ -420,6 +432,8 @@ class VerifierService:
         with self._cond:
             self.batches += 1
             self.items += len(merged)
+            if verdicts is not None:
+                self.rejected += verdicts.count(False)
             if self.metrics_registry.enabled:
                 secs = time.monotonic() - t0
                 self.metrics_registry.gauge("pbft_verify_inflight_age_seconds").set(round(secs, 6))

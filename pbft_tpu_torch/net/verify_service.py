@@ -347,6 +347,7 @@ class VerifyServiceDaemon:
             "requests": self.service.requests,
             "launches": self.service.batches,
             "items": self.service.items,
+            "rejected": self.service.rejected,
             "fallback_items": self.fallback_items,
             "host_verifier": self._host_verifier(),
         }

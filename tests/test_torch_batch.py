@@ -4,6 +4,7 @@ constants, the ladder constant block, SHA-512 constants, the mod-L fold
 constants, the pad triple and ladder, and the service's wire constants."""
 
 import numpy as np
+import pytest
 import torch
 
 from pbft_tpu.crypto import batch as JB
@@ -89,3 +90,38 @@ def test_pad_slots_verify_true_and_verdicts_slice_back():
     out = B.verify_batch(pubs, msgs, sigs, device="cpu")
     assert out.device.type == "cpu"
     assert out.tolist() == [True, False, False] + [True] * 13
+
+
+_C1_SEED, _C1_PUB = ref.keygen(b"\x5a" * 32)
+_C1_MSG = b"\x17" * 32
+_C1_SIG = ref.sign(_C1_SEED, _C1_MSG)
+
+
+@pytest.mark.parametrize(
+    "items",
+    [
+        # The reported pair: a short key then a long one, the same total
+        # length as two good keys.
+        [(_C1_PUB[:31], _C1_MSG, _C1_SIG), (_C1_PUB + b"\x00", _C1_MSG, _C1_SIG)],
+        [(_C1_PUB[:31], _C1_MSG, _C1_SIG)],
+        [(_C1_PUB, _C1_MSG, _C1_SIG), (_C1_PUB + b"\x00", _C1_MSG, _C1_SIG)],
+        [(_C1_PUB, _C1_MSG, _C1_SIG[:63])],
+        [(_C1_PUB, _C1_MSG, _C1_SIG + b"\x00")],
+        [(_C1_PUB, _C1_MSG[:31], _C1_SIG), (_C1_PUB, _C1_MSG + b"\x01", _C1_SIG)],
+    ],
+    ids=["short_then_long_key", "short_key", "long_key", "short_sig", "long_sig", "message_lengths"],
+)
+def test_wrong_length_items_raise_in_both_packages(items):
+    """pad_batch and verify_many raise ValueError on an item whose key,
+    message or signature has the wrong length, in the reference and in the
+    port; the launch is never reached."""
+
+    def launch(pubs, msgs, sigs):
+        raise AssertionError("a malformed batch reached the launch")
+
+    for pad_batch in (JB.pad_batch, B.pad_batch):
+        with pytest.raises(ValueError):
+            pad_batch(items, 16)
+    for verify_many in (JB.verify_many, B.verify_many):
+        with pytest.raises(ValueError):
+            verify_many(items, launch=launch)

@@ -11,7 +11,13 @@ replicas (``core/verifier.cc`` RemoteVerifier), then two ``pbftd`` and two
 asyncio replicas (which dial it through the JAX package's
 ServiceVerifier).
 
-(b) The in-memory ``pbft_tpu.consensus.simulation.Cluster`` with the
+(b) The port's own ``LocalCluster``/``PbftClient`` and harness
+(``pbft_tpu_torch.bench.harness``) drive ``pbftd`` clusters through the
+port's daemon on the card: config 0 commits, the daemon verified every
+signature the replicas checked (none on the host), and a cluster with a
+Byzantine signer commits while the daemon rejects its signatures.
+
+(c) The in-memory ``pbft_tpu.consensus.simulation.Cluster`` with the
 port's ``cuda_backend`` as its verifier runs the README's demo request:
 replies and signature verifications equal a run on the host oracle.
 """
@@ -25,6 +31,9 @@ import torch
 from pbft_tpu.consensus.simulation import Cluster
 from pbft_tpu.net import LocalCluster, PbftClient
 from pbft_tpu_torch import native
+from pbft_tpu_torch.bench import harness
+from pbft_tpu_torch.net.client import PbftClient as PortClient
+from pbft_tpu_torch.net.launcher import LocalCluster as PortCluster
 from pbft_tpu_torch.net.service import cuda_backend
 from pbft_tpu_torch.net.verify_service import VerifyServiceDaemon, probe_status_json
 
@@ -87,6 +96,30 @@ def test_pbftd_cluster_commits_through_the_port_daemon(cuda_device):
             assert after["items"] > run["before"]["items"], (impl, run)
             assert after["fallback_items"] == 0, after
             assert _scraped_items(daemon) == after["items"] == probe_status_json(daemon.address)["items"]
+    finally:
+        daemon.stop()
+
+
+@pytest.mark.cuda
+def test_port_harness_commits_through_the_port_daemon_on_the_card(cuda_device):
+    native.build()
+    daemon = harness.start_daemon("cuda")
+    try:
+        res = harness.run_native_cuda_config(0, requests=REQUESTS, daemon=daemon)
+        assert (res.verifier, res.requests) == ("native-cuda", REQUESTS)
+        assert res.service_items > 0 and res.service_fallback_items == 0
+        acc = res.accounting
+        assert acc["service_items"] == acc["replica_sig_checks"] and acc["service_fallback_items"] == 0
+        assert acc["verify_deadline_fired"] == 0
+        before = probe_status_json(daemon.address)
+        with PortCluster(n=4, verifier=daemon.address, byzantine=[3]) as cluster:
+            client = PortClient(cluster.config)
+            try:
+                assert client.request_many([f"byz-{k}" for k in range(8)], window=4, timeout=60) == ["awesome!"] * 8
+            finally:
+                client.close()
+        after = _settled_status(daemon)
+        assert after["rejected"] > before["rejected"] and after["fallback_items"] == 0
     finally:
         daemon.stop()
 
