@@ -75,7 +75,22 @@ and no result line:
             the replicas' sig_verified + sig_rejected; config 4's corrupted
             signatures are rejected on the card; launches = the daemon's
             windows x shards per config.
-8. parallel the fourth main path, pbft_tpu_torch.parallel, on B = 4,096
+8. simulation the fourth main path, the Python replica cores in memory:
+            BASELINE's configs 0-4 at full width and the harness's depth
+            through the port's harness (run_sim_config), on the cpu arm (the
+            native pool) and the cuda arm (each step's items in windows of 256
+            rows on the card, the window captured before the timed region),
+            in turns, an invariant checker on every run; then one seeded fault
+            schedule at n = 4 with the write-ahead log on, on both arms. Rows
+            printed with the card and the capture's seconds. Every request
+            commits; the arms end alike replica for replica (view,
+            executed_upto, state digest, counters) with the same verifier
+            calls, windows, items and rejections (config 4's Byzantine
+            signatures rejected on the card), at the JAX cpu arm's counts; no
+            view change; on the cuda arm nothing verified on the host (in the
+            fault run only view-change evidence, inline); launches = windows
+            (+ the run's one replayed capture call).
+9. parallel the fifth main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -96,16 +111,18 @@ and no result line:
             eager path, of round_step, and of verify_many on the same window;
             then one window of verify_many, (a) and (b) under torch.profiler
             (aten events, device busy ms, CUDA runtime calls).
-9. timing   CUDA-event times of each kernel's wrapper and of its plain
+10. timing  CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
-            time of ladder_digits (the ladder wrapper's one torch op), the
-            verify_many rate at 4096 and the service rates, beside the
+            time of ladder_digits (the ladder wrapper's one torch op), a
+            256-row verify_many window of 3 items (the simulation's shape),
+            the verify_many rate at 4096 and the service rates, beside the
             card's name and power limit.
 
 Launch counts are set to 0 just before each path (verify_many; each service
 run, after its warmup; the chunked call; each protocol config, after its
-daemon's warmup; each parallel path, in each of its
-processes) and read just after it: every kernel must have launched exactly
+daemon's warmup; each simulation run, after the window's
+first capture; each parallel path, in each of its processes) and read just
+after it: every kernel must have launched exactly
 once per window per shard that the path formed. A replay counts the
 launches its graph recorded at capture; every path's shapes are captured
 (and their eager priming runs launched) before its count starts.
@@ -163,7 +180,11 @@ BYTES_PER_ITEM = {  # each input read once, each output written once
     "p58": 2 * 32 * 4,
     "ladder": (128 + 4 * 32 + 4 * 32) * 4,
 }
-KERNEL_SIZES = (4096, 8192, 1, 17, 300)  # 8192: verify_many's 5,000-item window
+# Every window shape the paths form (verify_many's pad ladder, which the
+# daemon and the protocol path share, 4096 for the parallel phase and 256
+# for the simulation; 8192 is verify_many's 5,000-item window), then ragged
+# sizes.
+KERNEL_SIZES = (4096, 8192, 16, 64, 256, 1024, 1, 17, 300)
 SOURCES = {
     "inv": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:184"),
     "p58": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:190"),
@@ -788,6 +809,182 @@ def phase_protocol(K, VS, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The simulation path: the Python replica cores in memory, windows on the card.
+# ---------------------------------------------------------------------------
+
+# At the harness's depth (1, 200, 100, 50, 12 requests): (signatures
+# verified, windows of 256 rows on the cuda arm) per config, as the JAX
+# package's cpu arm counts them (the CPU tests pin the port's cpu arm to it).
+SIM_EXPECTED = {0: (24, 8), 1: (4944, 1624), 2: (8652, 424), 3: (24720, 310), 4: (22320, 188)}
+SIM_BATCH_PAD = 256
+# Rows run a second time without the invariant checker, to show what of its
+# cost the checked rows' seconds still hold: the cpu arm on every config,
+# the cuda arm on the config that sends the most messages a round.
+SIM_UNCHECKED = {"cpu": (0, 1, 2, 3, 4), "cuda": (4,)}
+# Row fields that differ between two runs that ended alike.
+SIM_RUN_FIELDS = {"seconds", "rounds_per_sec", "sig_verifies_per_sec", "requests_per_sec", "verifier",
+                  "capture_s", "invariant_s"}
+# A fault schedule at n = 4 with the write-ahead log on: a crash and its
+# restart from the log, a partition, link chaos, an equivocating replica.
+SIM_FAULT_SEED, SIM_FAULT_STEPS = 21, 120
+
+
+def _echo(operation, seq):
+    return operation
+
+
+def phase_simulation(K, card: str) -> dict:
+    """BASELINE's configs 0-4 (pbft_tpu_torch.bench.harness CONFIGS) at full
+    width in the in-memory simulation, on the cpu arm (the native pool) and
+    the cuda arm (each step's items in windows of 256 rows on the card), in
+    turns, with an invariant checker on every run (its seconds left out of
+    the rows' times), then the SIM_UNCHECKED rows again without it. Checks:
+    every request commits with f + 1 matching replies (the harness raises
+    otherwise); every run of a config ends alike (every replica's view,
+    executed_upto, state digest and counters; the verifier's calls, items
+    and rejections; the signatures the replicas checked and rejected), with
+    the signatures and the card's windows that the JAX cpu arm counts at
+    the harness's depth; config 4's Byzantine signatures rejected on
+    the card as on the host; no view change; on the cuda arm no signature
+    verified on the host (native pool, host_batch_verify, the oracle, the
+    replicas' inline verifier); each kernel launched once per window (the
+    run's windows and the one replayed capture call before its timed
+    region). Then one seeded fault schedule at n = 4 with the WAL on, on
+    both arms: invariants hold, every request is answered, the outcomes are
+    equal, and on the card only view-change evidence is verified on the
+    host (through the replicas' inline verifier). Returns the launch
+    counts, summed over the phase's paths."""
+    import dataclasses
+
+    from pbft_tpu_torch import native
+    from pbft_tpu_torch.bench import harness as H
+    from pbft_tpu_torch.consensus import config as C
+    from pbft_tpu_torch.consensus import faults as FL
+    from pbft_tpu_torch.consensus import invariants as I
+    from pbft_tpu_torch.consensus import replica as R
+    from pbft_tpu_torch.consensus import simulation as S
+    from pbft_tpu_torch.crypto import batch, ref
+
+    native.build()
+    check(native.available(), "the native core does not load")
+    host = {}
+    real = {}
+
+    def count(mod, name):
+        real[(mod, name)] = fn = getattr(mod, name)
+        host[name] = 0
+
+        def counted(*args, **kwargs):
+            host[name] += 1
+            return fn(*args, **kwargs)
+
+        setattr(mod, name, counted)
+
+    for mod, name in ((native, "verify_batch"), (native, "host_batch_verify"), (ref, "verify"),
+                      (R, "_host_verify")):
+        count(mod, name)
+    totals = {k: 0 for k in K.KERNELS}
+
+    def add(got):
+        for k in K.KERNELS:
+            totals[k] += got[k]
+
+    try:
+        t0 = time.perf_counter()
+        H._verifier("cuda", SIM_BATCH_PAD)([batch.PAD_ITEM])
+        emit("simulation", first_capture_s=time.perf_counter() - t0, batch_pad=SIM_BATCH_PAD, card=card)
+        phase_t0 = time.perf_counter()
+        for index, (name, n, _clients, _requests, byzantine) in enumerate(H.CONFIGS):
+            rows = {}
+            turns = [(arm, True) for arm in (("cpu", "cuda") if index % 2 == 0 else ("cuda", "cpu"))]
+            turns += [(arm, False) for arm in ("cpu", "cuda") if index in SIM_UNCHECKED[arm]]
+            for arm, checked in turns:
+                host.update({k: 0 for k in host})
+                K.reset_launches()
+                res = H.run_sim_config(index, arm, batch_pad=SIM_BATCH_PAD, invariants=checked)
+                got = dict(K.LAUNCHES)
+                rows[arm, checked] = res
+                acc = res.accounting
+                emit("simulation", config_index=index, arm=arm, checked=checked, row=dataclasses.asdict(res),
+                     capture_s=res.capture_s, invariant_s=res.invariant_s, host_verifies=dict(host), card=card)
+                what = f"simulation config {index} {arm}{'' if checked else ' unchecked'}"
+                check(res.replicas == n and acc["view_changes_started"] == 0,
+                      f"{what}: {acc['view_changes_started']} view changes")
+                check(acc["items"] == acc["replica_sig_checks"] == res.sig_verifications == SIM_EXPECTED[index][0],
+                      f"{what}: {acc}, expected {SIM_EXPECTED[index][0]} signatures")
+                check((acc["rejected"] > 0) == byzantine, f"{what}: {acc['rejected']} signatures rejected")
+                check((acc.get("invariant_checks", 0) > 0) == checked, f"{what}: {acc}")
+                if arm == "cuda":
+                    check(acc["windows"] == SIM_EXPECTED[index][1],
+                          f"{what}: {acc['windows']} windows, expected {SIM_EXPECTED[index][1]}")
+                    check(not any(host.values()), f"{what}: verified on the host: {host}")
+                    add(check_launches(K, f"simulation_cfg{index}{'' if checked else '_unchecked'}",
+                                       acc["windows"] + 1, got=got, capture_calls=1))
+                else:
+                    check("windows" not in acc and got == {k: 0 for k in K.KERNELS}, f"{what}: launched {got}")
+            # Every run of the config ended alike: the row but its times and
+            # the arm's own counts, the accounting but the checker's checks
+            # and the card's windows.
+            def ended(res):
+                row = {k: v for k, v in dataclasses.asdict(res).items() if k not in SIM_RUN_FIELDS}
+                row["accounting"] = {k: v for k, v in res.accounting.items() if k not in ("windows", "invariant_checks")}
+                return row
+
+            first = ended(rows["cpu", True])
+            differ = sorted({k for res in rows.values() for k, v in ended(res).items() if v != first[k]})
+            cpu, cuda = rows["cpu", True], rows["cuda", True]
+            emit("simulation", config_index=index, arms_equal=not differ,
+                 cuda_over_cpu_seconds=cuda.seconds / cpu.seconds,
+                 unchecked_seconds={arm: rows[arm, False].seconds for arm, checked in turns if not checked},
+                 checked_seconds={"cpu": cpu.seconds, "cuda": cuda.seconds}, card=card)
+            check(not differ, f"simulation config {index}: the runs differ in {differ}")
+        configs_s = time.perf_counter() - phase_t0
+
+        outcomes = {}
+        for arm in ("cpu", "cuda"):
+            host.update({k: 0 for k in host})
+            K.reset_launches()
+            verify = H._verifier(arm, SIM_BATCH_PAD)
+            tally = {"calls": 0, "items": 0}
+            windows = [0]
+
+            def counted(items, verify=verify, tally=tally, windows=windows):
+                tally["calls"] += 1
+                tally["items"] += len(items)
+                windows[0] += -(-len(items) // SIM_BATCH_PAD)
+                return verify(items)
+
+            cfg, seeds = C.make_local_cluster(4)
+            cluster = S.Cluster(config=cfg, seeds=seeds, seed=SIM_FAULT_SEED, shuffle=True, verifier=counted,
+                                app=_echo, wal=True)
+            checker = I.InvariantChecker(cluster)
+            schedule = FL.random_schedule(SIM_FAULT_SEED, 4, SIM_FAULT_STEPS, restart_from_disk=True)
+            t0 = time.perf_counter()
+            out = FL.run_schedule(cluster, checker, schedule, SIM_FAULT_STEPS)
+            secs = time.perf_counter() - t0
+            got = dict(K.LAUNCHES)
+            out.update(counters=[dict(r.counters) for r in cluster.replicas],
+                       sig_verifications=cluster.sig_verifications, violations=[str(v) for v in checker.violations],
+                       restarts=dict(cluster.restart_epochs), **tally)
+            outcomes[arm] = out
+            emit("simulation", faults=SIM_FAULT_SEED, arm=arm, steps=out["steps"], requests=out["requests"],
+                 answered=out["answered"], verifier_calls=tally["calls"], items=tally["items"],
+                 sig_verifications=cluster.sig_verifications, host_verifies=dict(host), secs=secs,
+                 schedule=[ev.to_list() for ev in schedule.events], card=card)
+            check(out["answered"] and not out["violations"], f"fault schedule on {arm}: {out}")
+            if arm == "cuda":
+                check(host["verify_batch"] == host["host_batch_verify"] == host["verify"] == 0,
+                      f"fault schedule: verified on the host outside view-change evidence: {host}")
+                add(check_launches(K, "simulation_faults", windows[0], got=got))
+        check(outcomes["cpu"] == outcomes["cuda"], "the fault schedule's outcomes differ between the arms")
+        emit("simulation", configs_s=configs_s, phase_s=time.perf_counter() - phase_t0, card=card)
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    return {"simulation": totals}
+
+
+# ---------------------------------------------------------------------------
 # The compile step: captured windows against the eager path.
 # ---------------------------------------------------------------------------
 
@@ -1277,6 +1474,14 @@ def phase_timing(torch, F, E, K, batch, pool, rng, card, env) -> dict:
         if name == "ladder":
             out[name]["digits_ms"] = cuda_ms(lambda: K.ladder_digits(sb, hb), 20, warmup=2)
         emit("timing", kernel=name, batch=B, **out[name], card=card)
+    # The simulation's window: 256 rows, a few of them items.
+    few = pool[:3]
+    batch.verify_many(few, pad_to=256)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        batch.verify_many(few, pad_to=256)
+    emit("timing", path="verify_many", batch=256, items=len(few), ms_per_window=(time.perf_counter() - t0) / 20 * 1e3,
+         card=card)
     items = [pool[i % len(pool)] for i in range(B)]
     batch.verify_many(items)
     t0 = time.perf_counter()
@@ -1310,6 +1515,8 @@ def main() -> int:
     try:
         env = phase_env(torch, K, card)
         phase = "kernels"
+        shapes = set(batch._PAD_LADDER) | {batch.pad_size(n) for n in VERIFY_SIZES} | {B, SIM_BATCH_PAD}
+        check(shapes <= set(KERNEL_SIZES), f"window shapes {sorted(shapes - set(KERNEL_SIZES))} not in KERNEL_SIZES")
         errs = phase_kernels(torch, F, E, K, ref, rng, card)
         phase = "verify"
         t0 = time.perf_counter()
@@ -1336,6 +1543,8 @@ def main() -> int:
         launches["surface_service_verifier"] = phase_surface(VS, K, pool, want, card)
         phase = "protocol"
         launches.update(phase_protocol(K, VS, card))
+        phase = "simulation"
+        launches.update(phase_simulation(K, card))
         phase = "parallel"
         launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
         phase = "timing"

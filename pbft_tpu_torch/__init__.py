@@ -27,18 +27,22 @@ Modules, each named after its JAX counterpart:
 - ``net.verify_service``  ``CudaVerifyEngine`` over a mesh of cards, the
   daemon, the CLI, the replica-side ``ServiceVerifier``
 - ``native``          the C++ core's verify pool (``ctypes``), built with
-  ``g++`` into ``build-core/``; ``host_batch_verify``, the host's verifier
+  ``g++`` into ``build-core/``; ``host_batch_verify``, the host's verifier;
+  the core's single-signature ``sign`` and ``verify``
 - ``utils.metrics``, ``utils.trace_schema``  the service's metrics registry,
   scrape server and manifest
 - ``utils.graphs``    the compile step: each window shape captured once into
   a CUDA graph and replayed (no JAX counterpart file: ``jax.jit`` does it)
 - ``entry``           ``entry()`` and ``dryrun_multichip(n)``
-- ``consensus.messages``, ``consensus.config``  the client request and reply
-  and ``network.json``, byte-identical to the JAX package's
+- ``consensus``       the Python replica core: every message type and its
+  codecs, ``network.json``, the write-ahead log, ``Replica``, the in-memory
+  ``simulation.Cluster`` (verifier ``cpu`` or ``cuda``), the invariant
+  checker and seeded fault schedules, byte-identical to the JAX package's
 - ``net.launcher``, ``net.client``  a localhost ``pbftd`` cluster and the
   PBFT client (f + 1 signed replies)
 - ``utils.waterfall`` the per-request latency join of client and replica
   traces
-- ``bench.harness``   BASELINE's configs 0-4 as ``pbftd`` clusters, on their
-  own verify pools (``native``) or on the card's daemon (``native-cuda``)
+- ``bench.harness``   BASELINE's configs 0-4 in the in-memory simulation
+  (arms ``cpu`` and ``cuda``) and as ``pbftd`` clusters, on their own verify
+  pools (``native``) or on the card's daemon (``native-cuda``)
 """

@@ -1,8 +1,19 @@
-"""Protocol throughput harness: BASELINE's configurations 0-4 as real
-``pbftd`` clusters over loopback TCP (the port's counterpart of the native
-arms of ``pbft_tpu/bench/harness.py``).
+"""Protocol throughput harness: BASELINE's configurations 0-4 in the
+in-memory simulation and as real ``pbftd`` clusters over loopback TCP (the
+port's counterpart of ``pbft_tpu/bench/harness.py``).
 
-Arms:
+Simulation arms (``consensus.simulation.Cluster``: the Python replica cores
+in lockstep over an in-memory transport, one request in flight per client;
+each replica's pending signatures verified once per step):
+- ``cpu``:         the native C++ batch verifier (``native.verify_batch``;
+                   built first, before the timed region).
+- ``cuda``:        the card: each step's items in windows of ``batch_pad``
+                   rows (``crypto.batch.verify_many``), each a replayed CUDA
+                   graph. The window is captured before the timed region
+                   (``capture_s``), unlike the JAX arm, whose compile fell
+                   inside it. Raises without CUDA.
+
+Cluster arms:
 - ``native``:      every replica verifies on its own C++ verify pool (the
                    host's control arm).
 - ``native-cuda``: every replica ships its signature batches to one
@@ -17,10 +28,11 @@ A row is the JAX harness's ``BenchResult`` (requests/s, rounds/s, reply
 latency percentiles, the latency waterfall with ``--trace-dir``) plus the
 service's share of the timed region (items, windows, rejected, fallback
 items) and ``accounting``: counts over the cluster's whole life that show
-where every signature was verified.
+where every signature was verified (on the simulation arms, the verifier's
+calls, windows, items and rejections and the replicas' checks).
 
-Usage: python -m pbft_tpu_torch.bench.harness --arm native|native-cuda
-[--config N] [--requests N] [--out FILE] [--trace-dir DIR] [--secure]
+Usage: python -m pbft_tpu_torch.bench.harness --arm cpu|cuda|native|native-cuda
+[--config N] [--requests N] [--out FILE]; cluster arms: [--trace-dir DIR] [--secure]
 [--pipeline N] [--flush-us N] [--flush-items N] [--batch-max-items N]
 [--batch-flush-us N] [--service-backend cuda|native|cpu]
 [--service-inflight N]
@@ -29,14 +41,18 @@ Usage: python -m pbft_tpu_torch.bench.harness --arm native|native-cuda
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional
 
+from .. import native
+from ..consensus.invariants import InvariantChecker
+from ..consensus.simulation import Cluster
 from ..net.client import PbftClient
 from ..net.launcher import LocalCluster
 from ..net.verify_service import VerifyServiceDaemon, probe_status_json
@@ -88,6 +104,12 @@ class BenchResult:
     # metrics lines once they hold still; with a service, its items and
     # fallback items over the same span.
     accounting: dict = dataclasses.field(default_factory=dict)
+    # Seconds spent capturing the card's window before the timed region
+    # (the cuda arm; 0 elsewhere).
+    capture_s: float = 0.0
+    # Seconds the invariant checker took inside the timed region, left out
+    # of ``seconds`` (the simulation arms with ``invariants``; 0 elsewhere).
+    invariant_s: float = 0.0
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))
@@ -107,7 +129,8 @@ CONFIGS = [
 # load generator keeps 32 requests in flight.
 PIPELINE = {1: 32}
 
-ARMS = ("native", "native-cuda")
+SIM_ARMS = ("cpu", "cuda")
+ARMS = SIM_ARMS + ("native", "native-cuda")
 
 _COUNTERS = ("sig_verified", "sig_rejected", "executed", "rounds_executed", "verify_deadline_fired",
              "view_changes_started")
@@ -140,6 +163,162 @@ def _delta(after: dict, before: dict, key: str) -> int:
 
 def _pct(vals: List[float], q: float) -> float:
     return vals[min(len(vals) - 1, int(q * len(vals)))] if vals else 0.0
+
+
+def _verifier(arm: str, batch_pad: int, device=None) -> Callable:
+    """A simulation arm's verifier: ``cpu`` is the native pool (it waits
+    for the core's build, and raises if the core cannot be built);
+    ``cuda`` sends the items in chunks of ``batch_pad``, each one window of
+    ``batch.verify_many`` on ``device`` (``None`` = the card)."""
+    if arm == "cpu":
+        return native.verify_batch
+    if arm != "cuda":
+        raise ValueError(f"unknown simulation arm {arm!r}: one of {SIM_ARMS}")
+    from ..crypto import batch
+
+    def cuda_arm(items):
+        out = []
+        for i in range(0, len(items), batch_pad):
+            out.extend(batch.verify_many(items[i : i + batch_pad], pad_to=batch_pad, device=device))
+        return out
+
+    return cuda_arm
+
+
+def _replica_states_digest(cluster: Cluster) -> str:
+    """Blake2b-128 hex of every replica's (view, executed_upto, state
+    digest, counters), in replica order."""
+    states = [[r.view, r.executed_upto, r.state_digest.hex(), dict(r.counters)] for r in cluster.replicas]
+    return hashlib.blake2b(json.dumps(states, sort_keys=True).encode(), digest_size=16).hexdigest()
+
+
+def run_sim_config(
+    index: int,
+    arm: str = "cpu",
+    batch_pad: int = 256,
+    requests: Optional[int] = None,
+    device=None,
+    invariants: bool = False,
+) -> BenchResult:
+    """Config ``index`` in the in-memory simulation: ``Cluster`` stepped in
+    lockstep, each client with one request in flight (PBFT §4.1), until
+    every request has committed with f + 1 matching replies (raises
+    otherwise). The Byzantine config's replica n - 1 sends every signature
+    as ``"ff" * 64``. The native core is built and, on the ``cuda`` arm, the
+    ``batch_pad`` window captured by one call on a pad triple, before the
+    timed region. With ``invariants`` an ``InvariantChecker`` watches the
+    run and checks the safety invariants each time the cluster quiesces
+    (raises ``InvariantViolation``); the checker's own seconds, clocked
+    around each of its calls, are ``invariant_s`` and left out of
+    ``seconds`` and the rates.
+
+    ``accounting`` holds the verifier's calls, items and False verdicts in
+    the timed region (on the ``cuda`` arm also its windows of ``batch_pad``
+    rows), the replicas' checks, rejections and view changes, and
+    ``replica_states``: a digest of every replica's (view, executed_upto,
+    state digest, counters), equal between two runs whose replicas ended
+    alike."""
+    from ..crypto import batch
+
+    name, n, clients, default_requests, byzantine = CONFIGS[index]
+    reqs_total = requests or default_requests
+    verify = _verifier(arm, batch_pad, device)
+    native.available()  # the replicas' host signer; cpu: the verifier too
+    capture_s = 0.0
+    if arm == "cuda":
+        t0 = time.perf_counter()
+        verify([batch.PAD_ITEM])
+        capture_s = time.perf_counter() - t0
+    tally = {"verifier_calls": 0, "items": 0, "rejected": 0}
+    if arm == "cuda":
+        tally["windows"] = 0
+
+    def counted(items):
+        out = verify(items)
+        tally["verifier_calls"] += 1
+        if arm == "cuda":
+            tally["windows"] += -(-len(items) // batch_pad)
+        tally["items"] += len(items)
+        tally["rejected"] += out.count(False)
+        return out
+
+    cluster = Cluster(n=n, verifier=counted)
+    checker = None
+    invariant_s = 0.0
+    if invariants:
+        checker = InvariantChecker(cluster)
+        observe = cluster.sent_observer
+
+        def timed_observe(src, msg):
+            nonlocal invariant_s
+            t = time.perf_counter()
+            observe(src, msg)
+            invariant_s += time.perf_counter() - t
+
+        cluster.sent_observer = timed_observe
+    if byzantine:
+
+        def corrupt(src, msg):
+            if src == n - 1 and getattr(msg, "sig", ""):
+                return dataclasses.replace(msg, sig="ff" * 64)
+            return msg
+
+        cluster.outbound_mutator = corrupt
+
+    t0 = time.perf_counter()
+    submitted = 0
+    client_ts = {c: 0 for c in range(clients)}
+    inflight: dict = {}
+    executed = 0
+    while executed < reqs_total:
+        for c in range(clients):
+            if c not in inflight and submitted < reqs_total:
+                client_ts[c] += 1
+                r = cluster.submit(f"op-{submitted}", client=f"127.0.0.1:{9000 + c}", timestamp=client_ts[c])
+                inflight[c] = r.timestamp
+                submitted += 1
+        if not cluster.step():
+            if checker is not None:
+                t = time.perf_counter()
+                checker.check()
+                invariant_s += time.perf_counter() - t
+                tally["invariant_checks"] = tally.get("invariant_checks", 0) + 1
+            # Quiesced: every request in flight has committed or stalled.
+            for c, ts in list(inflight.items()):
+                cluster.committed_result(ts)  # raises if not committed
+                del inflight[c]
+                executed += 1
+            if submitted >= reqs_total and not inflight:
+                break
+    elapsed = time.perf_counter() - t0 - invariant_s
+    rounds = max((r.counters.get("rounds_executed", 0) for r in cluster.replicas), default=0)
+    executed = max((r.counters.get("executed", 0) for r in cluster.replicas), default=0)
+    counters = [r.counters for r in cluster.replicas]
+    accounting = {
+        **tally,
+        "replica_sig_checks": sum(c.get("sig_verified", 0) + c.get("sig_rejected", 0) for c in counters),
+        "replica_sig_rejected": sum(c.get("sig_rejected", 0) for c in counters),
+        "view_changes_started": sum(c.get("view_changes_started", 0) for c in counters),
+        "replica_states": _replica_states_digest(cluster),
+    }
+    return BenchResult(
+        config=name,
+        replicas=n,
+        f=cluster.config.f,
+        clients=clients,
+        requests=reqs_total,
+        seconds=elapsed,
+        rounds_per_sec=(rounds or reqs_total) / elapsed,
+        sig_verifies_per_sec=cluster.sig_verifications / elapsed,
+        sig_verifications=cluster.sig_verifications,
+        verifier=arm,
+        byzantine=byzantine,
+        requests_per_sec=reqs_total / elapsed,
+        mean_batch=executed / rounds if rounds else 1.0,
+        accounting=accounting,
+        capture_s=capture_s,
+        invariant_s=invariant_s,
+    )
 
 
 def run_native_config(
@@ -365,8 +544,15 @@ def run_native_cuda_config(
             daemon.stop()
 
 
+_SIM_KNOBS = ("batch_pad", "requests", "device", "invariants")
+
+
 def run_config(arm: str, index: int, **kwargs) -> BenchResult:
-    """One config on one arm; an unknown arm raises."""
+    """One config on one arm; an unknown arm raises. The simulation arms
+    take ``batch_pad``, ``requests``, ``device`` and ``invariants`` and
+    ignore the cluster arms' knobs, as the JAX harness does."""
+    if arm in SIM_ARMS:
+        return run_sim_config(index, arm, **{k: v for k, v in kwargs.items() if k in _SIM_KNOBS})
     if arm == "native":
         kwargs = {k: v for k, v in kwargs.items() if k not in ("service_backend", "service_inflight")}
         return run_native_config(index, **kwargs)
@@ -397,9 +583,11 @@ def run_all(arm: str = "native-cuda", out_path: Optional[str] = None, trace_dir:
 def main(argv: Optional[List[str]] = None) -> None:
     import argparse
 
-    parser = argparse.ArgumentParser(description="pbftd clusters on their own verify pools or on the card")
+    parser = argparse.ArgumentParser(description="BASELINE's configs in the in-memory simulation or as pbftd "
+                                     "clusters, verified on the host or on the card")
     parser.add_argument("--arm", default="native-cuda", choices=ARMS,
-                        help="native-cuda = pbftd replicas -> the port's coalescing verify service on the card")
+                        help="cpu / cuda = the in-memory simulation on the native pool / the card; native-cuda = "
+                        "pbftd replicas -> the port's coalescing verify service on the card")
     parser.add_argument("--config", type=int, default=None, help="0-4; default all")
     parser.add_argument("--requests", type=int, default=None)
     parser.add_argument("--out", default=None, help="write the JSON rows here too")
@@ -421,10 +609,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--service-inflight", type=int, default=1,
                         help="native-cuda arm: overlapped service launches (1 = serial)")
     args = parser.parse_args(argv)
-    knobs = dict(requests=args.requests, secure=args.secure, pipeline=args.pipeline, flush_us=args.flush_us,
-                 flush_items=args.flush_items, batch_max_items=args.batch_max_items,
-                 batch_flush_us=args.batch_flush_us, service_backend=args.service_backend,
-                 service_inflight=args.service_inflight)
+    if args.arm in SIM_ARMS:
+        knobs = dict(requests=args.requests)
+    else:
+        knobs = dict(requests=args.requests, secure=args.secure, pipeline=args.pipeline, flush_us=args.flush_us,
+                     flush_items=args.flush_items, batch_max_items=args.batch_max_items,
+                     batch_flush_us=args.batch_flush_us, service_backend=args.service_backend,
+                     service_inflight=args.service_inflight)
     if args.config is None:
         run_all(args.arm, out_path=args.out, trace_dir=args.trace_dir, **knobs)
         return

@@ -30,6 +30,8 @@ assert len(_PAD_MSG) == 32
 _PAD_PUB = np.frombuffer(ref.public_key(_PAD_SEED), np.uint8)
 _PAD_SIG = np.frombuffer(ref.sign(_PAD_SEED, _PAD_MSG), np.uint8)
 _PAD_MSG_ARR = np.frombuffer(_PAD_MSG, np.uint8)
+# The pad triple as bytes: a window of it alone verifies True.
+PAD_ITEM = (_PAD_PUB.tobytes(), _PAD_MSG, _PAD_SIG.tobytes())
 
 
 def _verify(pubs, msgs, sigs):

@@ -1,6 +1,6 @@
 """The native verify pool: ctypes bindings to the C++ core's batch verifier
 (``core/`` -> ``build-core/libpbftcore.so``), the port's copy of the part of
-``pbft_tpu/native.py`` that verification needs.
+``pbft_tpu/native.py`` that verification and signing need.
 
 The pool (``core/verify_pool.cc``) splits a batch into fixed 256-item
 windows and checks each by a random linear combination on its threads; its
@@ -8,7 +8,9 @@ accept set equals RFC 8032's on every signature a single signer can make
 (two crafted signatures with cancelling torsion defects in one window pass
 together, by design: see ``core/ed25519.cc``). It is the host's verifier:
 the daemon's warm-time fallback and the replica client's safety net
-(``host_batch_verify``), and the service's ``native`` backend.
+(``host_batch_verify``), and the service's ``native`` backend. The core's
+single-signature ``sign`` and ``verify`` are the replicas' host signer and
+inline verifier (``consensus/replica.py``).
 
 There is one build of ``core/`` in a checkout, ``build-core/``, shared with
 the JAX package. When its artifacts are missing this module builds them all
@@ -148,6 +150,12 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pbft_verify_threads.restype = ctypes.c_int
     so.pbft_verify_pool_stats_json.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
     so.pbft_verify_pool_stats_json.restype = ctypes.c_size_t
+    so.pbft_ed25519_public_key.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    so.pbft_ed25519_public_key.restype = None
+    so.pbft_ed25519_sign.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+    so.pbft_ed25519_sign.restype = None
+    so.pbft_ed25519_verify.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p]
+    so.pbft_ed25519_verify.restype = ctypes.c_int
     return so
 
 
@@ -242,6 +250,37 @@ def verify_batch(items: Sequence[Tuple[bytes, bytes, bytes]]) -> List[bool]:
     bool per item. Raises ValueError on a triple of other lengths, and
     whatever ``lib()`` raises when the library cannot be built or loaded."""
     return _verify_on(lib(), items) if items else []
+
+
+def _check_seed(seed: bytes) -> None:
+    if len(seed) != 32:
+        raise ValueError(f"an Ed25519 seed is 32 bytes, not {len(seed)}")
+
+
+def public_key(seed: bytes) -> bytes:
+    """The 32-byte Ed25519 public key of a 32-byte seed (RFC 8032)."""
+    _check_seed(seed)
+    out = ctypes.create_string_buffer(32)
+    lib().pbft_ed25519_public_key(out, seed)
+    return out.raw
+
+
+def sign(seed: bytes, msg: bytes) -> bytes:
+    """The 64-byte RFC 8032 signature of ``msg`` under ``seed``: the same
+    bytes as ``crypto.ref.sign`` (signatures are deterministic)."""
+    _check_seed(seed)
+    out = ctypes.create_string_buffer(64)
+    lib().pbft_ed25519_sign(out, seed, msg, len(msg))
+    return out.raw
+
+
+def verify(pub: bytes, msg: bytes, sig: bytes) -> bool:
+    """One signature, checked alone (no random linear combination): the
+    accept set of ``crypto.ref.verify``. False for a key or signature of
+    another length."""
+    if len(pub) != 32 or len(sig) != 64:
+        return False
+    return bool(lib().pbft_ed25519_verify(pub, msg, len(msg), sig))
 
 
 def set_verify_threads(threads: int) -> None:

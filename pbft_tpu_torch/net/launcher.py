@@ -3,8 +3,9 @@ as a context manager (the port's copy of ``pbft_tpu/net/launcher.py``, cut
 to the options the bench harness passes).
 
 Every replica is a ``pbftd`` process (``core/``), built into the shared
-``build-core/`` by ``native.build()`` under its file lock. The port launches
-no Python replica.
+``build-core/`` by ``native.build()`` under its file lock. The port's Python
+replica (``consensus/replica.py``) runs only in the in-memory simulation:
+the asyncio runtime that would serve it over sockets is not ported.
 """
 
 from __future__ import annotations

@@ -58,9 +58,11 @@ def test_cluster_config_json_is_byte_identical(n):
     assert config.ClusterConfig.from_json(text) == port_cfg
     assert jax_config.ClusterConfig.from_json(text) == jax_cfg
     assert (port_cfg.n, port_cfg.f, port_cfg.primary_of(n + 1)) == (jax_cfg.n, jax_cfg.f, jax_cfg.primary_of(n + 1))
-    # A file with a setting this copy cannot hold is refused, not dropped.
-    with pytest.raises(ValueError, match="net_threads"):
-        config.ClusterConfig.from_json(dataclasses.replace(jax_cfg, net_threads=4).to_json())
+    # Every key is settable, as in the JAX package: a file that sets
+    # net_threads round-trips byte for byte.
+    text = dataclasses.replace(jax_cfg, net_threads=4).to_json()
+    assert config.ClusterConfig.from_json(text).net_threads == 4
+    assert config.ClusterConfig.from_json(text).to_json() == text
 
 
 def test_client_messages_are_byte_identical():
@@ -97,7 +99,7 @@ def test_harness_tables_and_row_fields_equal_the_jax_harness():
     assert port_fields[: len(jax_fields)] == jax_fields
     assert port_fields[len(jax_fields):] == [
         "service_items", "service_windows", "service_rejected", "service_fallback_items",
-        "service_items_per_window", "accounting",
+        "service_items_per_window", "accounting", "capture_s", "invariant_s",
     ]
     args = dict(config="c", replicas=4, f=1, clients=1, requests=2, seconds=1.0, rounds_per_sec=2.0,
                 sig_verifies_per_sec=3.0, sig_verifications=3, verifier="native")
@@ -125,7 +127,7 @@ def test_unknown_arms_raise_and_the_card_arm_needs_a_card(monkeypatch):
     import torch
 
     with pytest.raises(ValueError, match="unknown arm"):
-        harness.run_all("cpu")
+        harness.run_all("native-tpu")
     with pytest.raises(ValueError, match="unknown arm"):
         harness.run_config("jax", 0)
     with pytest.raises(SystemExit):
