@@ -90,7 +90,26 @@ and no result line:
             view change; on the cuda arm nothing verified on the host (in the
             fault run only view-change evidence, inline); launches = windows
             (+ the run's one replayed capture call).
-9. parallel the fifth main path, pbft_tpu_torch.parallel, on B = 4,096
+9. asyncio  the fifth main path, the port's asyncio replica runtime
+            (pbft_tpu_torch.net.server): BASELINE's configs 0-4 at full width
+            as clusters of its replica processes over loopback, at 20, 64,
+            20, 24 and 24 requests (cuts of the harness's 100-200). Configs
+            0-2: every replica verifies its batches on the card in its own
+            process (--verifier cuda: 4, 4 and 7 CUDA contexts), config 0's
+            primary on an event-loop thread of this script; configs 3-4: every
+            replica sends its batches to one daemon, warmed first. Then two
+            pbftd and two asyncio replicas commit 10 requests on that daemon.
+            Rows with the card: requests/s, rounds/s, reply percentiles,
+            windows per replica, ms per window, the first window's seconds
+            (its capture), the compute processes nvidia-smi lists and their
+            memory. Every request commits with f + 1 matching signed replies;
+            every replica takes part, its verified items equal to its
+            signature checks (/metrics against /status); no view change; config 4 rejects
+            signatures; nvidia-smi lists one compute process per process
+            that verifies on the card (replicas on the daemon hold none); on
+            the daemon its items equal the replicas' checks and nothing fell
+            back to the host after the warm.
+10. parallel the sixth main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -111,7 +130,7 @@ and no result line:
             eager path, of round_step, and of verify_many on the same window;
             then one window of verify_many, (a) and (b) under torch.profiler
             (aten events, device busy ms, CUDA runtime calls).
-10. timing  CUDA-event times of each kernel's wrapper and of its plain
+11. timing  CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), a
             256-row verify_many window of 3 items (the simulation's shape),
@@ -121,7 +140,10 @@ and no result line:
 Launch counts are set to 0 just before each path (verify_many; each service
 run, after its warmup; the chunked call; each protocol config, after its
 daemon's warmup; each simulation run, after the window's
-first capture; each parallel path, in each of its processes) and read just
+first capture; config 0's in-process primary of the asyncio phase, after its
+warmup and a capture of shapes 16, 64 and 256 in this process, against that
+replica's windows; each asyncio daemon run and the mixed cluster, after the
+daemon's warm; each parallel path, in each of its processes) and read just
 after it: every kernel must have launched exactly
 once per window per shard that the path formed. A replay counts the
 launches its graph recorded at capture; every path's shapes are captured
@@ -548,13 +570,14 @@ def _scrape(port: int, path: str) -> str:
         return r.read().decode()
 
 
-def _samples(text: str) -> dict:
-    """The {replica="service"} samples of a Prometheus scrape, by name."""
+def _samples(text: str, replica: str = "service") -> dict:
+    """The {replica="<replica>"} samples of a Prometheus scrape, by name."""
+    label = f'{{replica="{replica}"}} '
     out = {}
     for line in text.splitlines():
-        if line.startswith("#") or '{replica="service"}' not in line:
+        if line.startswith("#") or label not in line:
             continue
-        name, value = line.split('{replica="service"} ')
+        name, value = line.split(label)
         out[name] = float(value)
     return out
 
@@ -689,7 +712,8 @@ def phase_surface(VS, K, pool, want, card: str) -> dict:
             "batch_size_count": m["pbft_verify_batch_size_count"] == status["launches"],
             "rejected": m["pbft_verify_rejected_total"] == served_false,
             "cold_compile": m["pbft_verify_service_cold_compile_seconds"] == warm_stats["cold_compile_s"],
-            "series": names == set(trace_schema.METRIC_SCHEMAS),
+            "series": names == {k for k, (_, emitters) in trace_schema.METRIC_SCHEMAS.items()
+                                if emitters & {"service.py", "verify_service.py"}},
         }
         emit("surface", path="metrics_scrape", status_items=status["items"], status_launches=status["launches"],
              scraped={k: m[k] for k in ("pbft_verify_items_total", "pbft_verify_batches_total",
@@ -982,6 +1006,250 @@ def phase_simulation(K, card: str) -> dict:
         for (mod, name), fn in real.items():
             setattr(mod, name, fn)
     return {"simulation": totals}
+
+
+# ---------------------------------------------------------------------------
+# The asyncio path: the port's asyncio replicas over loopback, batches on the
+# card in each replica's process or on one daemon.
+# ---------------------------------------------------------------------------
+
+# Requests driven per config: cuts of the harness's protocol depths (100,
+# 200, 100, 96 and 96) to keep the phase near two minutes (3 per client on
+# the 8-client configs).
+ASYNCIO_REQUESTS = {0: 20, 1: 64, 2: 20, 3: 24, 4: 24}
+# Configs whose every replica verifies on the card in its own process
+# (--verifier cuda); the others send their batches to one daemon.
+ASYNCIO_IN_PROCESS = (0, 1, 2)
+ASYNCIO_MIXED = ["cxx", "cxx", "py", "py"]
+ASYNCIO_MIXED_REQUESTS = 10
+
+
+class ComputeApps:
+    """Polls ``nvidia-smi --query-compute-apps`` on a thread while it runs:
+    the most compute processes listed at once, their device memory (MiB) in
+    that poll, and the largest memory seen per process id; and the card's
+    memory.used. Inside a container nvidia-smi may not show the
+    container's process ids (it may list every process under one id, each
+    with the same used_memory), so the entries are counted as well as
+    matched by id, and memory.used over the processes is the memory per
+    process."""
+
+    def __init__(self, every_s: float = 1.0):
+        self.every_s = every_s
+        self.mib: dict = {}  # pid -> most MiB seen
+        self.entries: list = []  # (pid, MiB) of the poll that listed the most
+        self.used_mib = 0  # the most memory.used seen
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def poll(self) -> None:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=30,
+        ).stdout
+        entries = []
+        for line in out.strip().splitlines():
+            pid, mib = (x.strip() for x in line.split(","))
+            if pid.isdigit() and mib.isdigit():
+                entries.append((int(pid), int(mib)))
+                self.mib[int(pid)] = max(self.mib.get(int(pid), 0), int(mib))
+        if len(entries) > len(self.entries):
+            self.entries = entries
+        self.used_mib = max(self.used_mib, int(smi("memory.used").split()[0]))
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.every_s):
+            self.poll()
+
+    def __enter__(self) -> "ComputeApps":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(30)
+
+
+def _trace_windows(trace_dir: str, n: int) -> list:
+    """Per replica, from its trace's verify_batch events: the windows, the
+    first window's seconds, the later windows that stalled on a capture,
+    and the others' ms."""
+    out = []
+    for i in range(n):
+        with open(os.path.join(trace_dir, f"replica-{i}.jsonl")) as fh:
+            evs = [e for e in map(json.loads, fh) if e["ev"] == "verify_batch"]
+        rest = sorted(1e3 * e["secs"] for e in evs[1:])
+        out.append({
+            "windows": len(evs),
+            "first_window_s": evs[0]["secs"] if evs else None,
+            # Later windows of half a second or more: a shape's first
+            # capture (about a second), after the first window's.
+            "stalls": sum(ms >= 500 for ms in rest),
+            "ms_mean": sum(rest) / len(rest) if rest else None,
+            "ms_p50": rest[len(rest) // 2] if rest else None,
+            "ms_max": rest[-1] if rest else None,
+        })
+    return out
+
+
+def _replica_checks(cluster) -> list:
+    """Each replica's (items its verifier was given, sig_verified +
+    sig_rejected), read from /metrics and /status once two reads agree."""
+    last = None
+    for _ in range(20):
+        now = []
+        for i, port in enumerate(cluster.metrics_ports):
+            try:
+                items = _samples(_scrape(port, "/metrics"), str(i))["pbft_verify_items_total"]
+                status = json.loads(_scrape(port, "/status"))
+            except OSError as e:
+                log = "" if i in cluster.threads else cluster.log_path(i).read_text(errors="replace")[-2000:]
+                raise PhaseFailed(f"replica {i}'s /metrics on port {port}: {e}\n{log}") from e
+            check(status.get("replica") == i, f"replica {i}'s /status on port {port} is {status.get('replica')}'s")
+            now.append((int(items), status.get("sig_verified", 0) + status.get("sig_rejected", 0)))
+        if now == last:
+            return now
+        last = now
+        time.sleep(0.5)
+    return last
+
+
+def phase_asyncio(K, VS, card: str) -> dict:
+    """BASELINE's configs 0-4 (pbft_tpu_torch.bench.harness CONFIGS) at
+    full width as clusters of the port's asyncio replicas
+    (pbft_tpu_torch.net.server), at the ASYNCIO_REQUESTS depths. Configs 0-2:
+    every replica verifies its batches on the card in its own process
+    (--verifier cuda; 4, 4 and 7 CUDA contexts on one card), config 0's
+    primary on an event-loop thread of this process; configs 3-4: every
+    replica sends its batches to one daemon on the card, warmed first. Then
+    a mixed cluster, two pbftd and two asyncio replicas on config 4's
+    daemon, commits ASYNCIO_MIXED_REQUESTS. Checks: every request commits
+    with f + 1 matching signed replies (the harness raises otherwise); every
+    replica verified items, as many as its signature checks (/metrics
+    against /status); no view change; config 4 rejects signatures; every process
+    that verifies on the card is listed by nvidia-smi, and on a daemon no
+    replica is; config 0's in-process primary launched each kernel once per
+    window after its warmup; on a daemon, its items equal the replicas'
+    checks, nothing fell back to the host after the warm, and each kernel
+    launched once per daemon window per shard. Rows are printed with the
+    card. Returns the launch counts by path."""
+    import dataclasses
+    import tempfile
+
+    from pbft_tpu_torch import native
+    from pbft_tpu_torch.bench import harness as H
+    from pbft_tpu_torch.crypto import batch
+
+    native.build()
+    launches = {}
+    me = os.getpid()
+
+    def daemon_checks(what, res, daemon, ready, end, got, byzantine):
+        acc = res.accounting
+        check(acc["service_items"] == acc["replica_sig_checks"] and acc["replica_service_fallbacks"] == 0,
+              f"{what}: the daemon verified {acc['service_items']} items, the replicas checked "
+              f"{acc['replica_sig_checks']} ({acc['replica_service_fallbacks']} batches on their hosts)")
+        check(end["fallback_items"] == ready["fallback_items"] == 0, f"{what}: fallback items {end}")
+        check((res.service_rejected > 0) == byzantine, f"{what}: the daemon rejected {res.service_rejected}")
+        return check_launches(K, what.replace(" ", "_"), end["launches"] - ready["launches"],
+                              daemon.engine.device_count, got=got)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-asyncio-") as traces:
+        phase_t0 = time.perf_counter()
+        for index, (name, n, _clients, _requests, byzantine) in enumerate(H.CONFIGS):
+            trace_dir = os.path.join(traces, f"cfg{index}")
+            in_process = index in ASYNCIO_IN_PROCESS
+            seen = {}
+
+            def on_warm(cluster, seen=seen):
+                seen["pids"] = [me if p is None else p.pid for p in cluster.procs]
+                if cluster.threads:
+                    server = seen["server"] = cluster.threads[0].server
+                    time.sleep(1.0)  # the warmup's last votes
+                    t0 = time.perf_counter()
+                    for k in (1, 17, 65):  # shapes 16, 64 and 256, captured in this process
+                        batch.verify_many([batch.PAD_ITEM] * k)
+                    seen["capture_s"] = time.perf_counter() - t0
+                    seen["windows0"] = server.batches_run
+                    K.reset_launches()
+
+            def on_done(cluster, seen=seen):
+                seen["checks"] = _replica_checks(cluster)
+                if "server" in seen:
+                    seen["windows"] = seen["server"].batches_run - seen["windows0"]
+                    seen["launches"] = dict(K.LAUNCHES)
+
+            daemon = None
+            t0 = time.perf_counter()
+            if not in_process:
+                daemon = H.start_daemon("cuda", trace_dir=trace_dir)
+            warm_s = time.perf_counter() - t0
+            try:
+                if daemon is not None:
+                    ready = VS.probe_status_json(daemon.address)
+                    K.reset_launches()  # after the warm's captures
+                with ComputeApps() as apps:
+                    res = H.run_native_config(
+                        index, requests=ASYNCIO_REQUESTS[index],
+                        verifier="cuda" if in_process else daemon.address,
+                        impl=(["thread"] + ["py"] * (n - 1)) if index == 0 else "py",
+                        tag="asyncio-cuda" if in_process else "asyncio-daemon",
+                        trace_dir=trace_dir, metrics_ports=True, on_warm=on_warm, on_done=on_done)
+                    apps.poll()
+                if daemon is not None:
+                    end = VS.probe_status_json(daemon.address)
+                    launches[f"asyncio_cfg{index}"] = daemon_checks(
+                        f"asyncio cfg{index}", res, daemon, ready, end, dict(K.LAUNCHES), byzantine)
+                if index == len(H.CONFIGS) - 1:
+                    # A mixed cluster on the same daemon.
+                    mixed0 = VS.probe_status_json(daemon.address)
+                    K.reset_launches()
+                    mixed = H.run_native_config(0, requests=ASYNCIO_MIXED_REQUESTS, verifier=daemon.address,
+                                                impl=ASYNCIO_MIXED, tag="asyncio-mixed")
+                    got = dict(K.LAUNCHES)
+                    mixed1 = VS.probe_status_json(daemon.address)
+                    emit("asyncio", mixed=ASYNCIO_MIXED, requests=mixed.requests,
+                         requests_per_sec=mixed.requests_per_sec, reply_p50_ms=mixed.reply_p50_ms,
+                         row=dataclasses.asdict(mixed), card=card)
+                    check(mixed.accounting["view_changes_started"] == 0, f"mixed cluster: {mixed.accounting}")
+                    launches["asyncio_mixed"] = daemon_checks("asyncio mixed", mixed, daemon, mixed0, mixed1, got,
+                                                              False)
+            finally:
+                if daemon is not None:
+                    daemon.stop()
+            acc = res.accounting
+            windows = _trace_windows(trace_dir, n)
+            checks = seen["checks"]
+            # The processes with a context on the card: this one (earlier
+            # phases, config 0's primary, the daemon) and each replica on
+            # --verifier cuda.
+            on_card = sorted(set(seen["pids"] if in_process else []) | {me})
+            emit("asyncio", config_index=index, name=name, replicas=n, verifier=res.verifier,
+                 requests=res.requests, requests_per_sec=res.requests_per_sec, rounds_per_sec=res.rounds_per_sec,
+                 reply_ms={"p50": res.reply_p50_ms, "p95": res.reply_p95_ms, "p99": res.reply_p99_ms},
+                 windows_per_replica=[w["windows"] for w in windows],
+                 ms_per_window={k: [w[f"ms_{k}"] for w in windows] for k in ("mean", "p50", "max")},
+                 first_window_s=[w["first_window_s"] for w in windows],
+                 card_processes=len(on_card), card_pids=on_card, compute_apps=apps.entries,
+                 card_mib_per_entry=sorted(mib for _, mib in apps.entries), card_used_mib=apps.used_mib,
+                 card_used_mib_per_process=apps.used_mib / len(on_card),
+                 capture_stalls_per_replica=[w["stalls"] for w in windows],
+                 pids_listed=sorted(set(on_card) & set(apps.mib)), daemon_warm_s=warm_s if daemon else None,
+                 in_process_capture_s=seen.get("capture_s"), items_and_checks=checks,
+                 row=dataclasses.asdict(res), card=card)
+            what = f"asyncio config {index}"
+            check(res.replicas == n and acc["view_changes_started"] == 0,
+                  f"{what}: {acc['view_changes_started']} view changes")
+            check(len(checks) == n and all(items == sig > 0 for items, sig in checks),
+                  f"{what}: (items verified, signature checks) per replica {checks}")
+            check((acc["replica_sig_rejected"] > 0) == byzantine, f"{what}: {acc['replica_sig_rejected']} rejected")
+            check(len(apps.entries) == len(on_card),
+                  f"{what}: {len(on_card)} processes verify on the card, nvidia-smi lists {apps.entries}")
+            if index == 0:
+                launches["asyncio_cfg0_primary"] = check_launches(
+                    K, "asyncio_cfg0_primary", seen["windows"], got=seen["launches"])
+        emit("asyncio", phase_s=time.perf_counter() - phase_t0, card=card)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1545,6 +1813,8 @@ def main() -> int:
         launches.update(phase_protocol(K, VS, card))
         phase = "simulation"
         launches.update(phase_simulation(K, card))
+        phase = "asyncio"
+        launches.update(phase_asyncio(K, VS, card))
         phase = "parallel"
         launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
         phase = "timing"

@@ -1,8 +1,9 @@
-"""pbft_tpu_torch: the PyTorch/CUDA port of pbft_tpu's device layer.
+"""pbft_tpu_torch: the PyTorch/CUDA port of pbft_tpu.
 
 The port runs batched Ed25519 verification, per-round quorum counting over
-the local cards and processes, and the verify service that owns the
-accelerator, on NVIDIA H100s. Every long multiply chain that the JAX
+the local cards and processes, the verify service that owns the
+accelerator, and the asyncio replica runtime whose replicas verify on the
+card in their own process, on NVIDIA H100s. Every long multiply chain that the JAX
 package ran as a Pallas kernel is a CUDA C++ kernel written for sm_90a
 (``crypto/csrc/``); everything around the kernels is plain PyTorch.
 
@@ -29,8 +30,10 @@ Modules, each named after its JAX counterpart:
 - ``native``          the C++ core's verify pool (``ctypes``), built with
   ``g++`` into ``build-core/``; ``host_batch_verify``, the host's verifier;
   the core's single-signature ``sign`` and ``verify``
-- ``utils.metrics``, ``utils.trace_schema``  the service's metrics registry,
-  scrape server and manifest
+- ``utils.metrics``, ``utils.trace_schema``, ``utils.flight``, ``utils.trace``
+  the metrics registry, consensus-phase spans, scrape server and health
+  readers; the whole schema manifest; the black-box flight recorder; JSONL
+  tracing
 - ``utils.graphs``    the compile step: each window shape captured once into
   a CUDA graph and replayed (no JAX counterpart file: ``jax.jit`` does it)
 - ``entry``           ``entry()`` and ``dryrun_multichip(n)``
@@ -38,11 +41,19 @@ Modules, each named after its JAX counterpart:
   codecs, ``network.json``, the write-ahead log, ``Replica``, the in-memory
   ``simulation.Cluster`` (verifier ``cpu`` or ``cuda``), the invariant
   checker and seeded fault schedules, byte-identical to the JAX package's
-- ``net.launcher``, ``net.client``  a localhost ``pbftd`` cluster and the
-  PBFT client (f + 1 signed replies)
+- ``net.server``      the asyncio replica runtime (``AsyncReplicaServer``,
+  ``python -m pbft_tpu_torch.net.server``): verifier ``cuda`` (the default:
+  the card, in-process), ``cpu``, a verify service's address, or a callable
+- ``net.secure``, ``net.discovery``, ``net.gateway``  encrypted replica links
+  and protocol versions, multicast peer discovery, the client-gateway tier
+- ``net.launcher``, ``net.client``  a localhost cluster of ``pbftd``, asyncio
+  replica processes and replicas on threads of the caller, and the PBFT
+  client (f + 1 signed replies)
 - ``utils.waterfall`` the per-request latency join of client and replica
   traces
 - ``bench.harness``   BASELINE's configs 0-4 in the in-memory simulation
-  (arms ``cpu`` and ``cuda``) and as ``pbftd`` clusters, on their own verify
-  pools (``native``) or on the card's daemon (``native-cuda``)
+  (arms ``cpu`` and ``cuda``) and as clusters of ``pbftd`` or asyncio
+  replicas (``impl``), on their own verify pools (``native``), on the
+  card's daemon (``native-cuda``) or, for asyncio replicas, on the card in
+  each replica's process
 """

@@ -133,14 +133,19 @@ SIM_ARMS = ("cpu", "cuda")
 ARMS = SIM_ARMS + ("native", "native-cuda")
 
 _COUNTERS = ("sig_verified", "sig_rejected", "executed", "rounds_executed", "verify_deadline_fired",
-             "view_changes_started")
+             "view_changes_started", "verify_batches", "verify_service_fallbacks")
 
 
 def _replica_counters(cluster: LocalCluster) -> List[dict]:
-    """Each replica's counters from the last metrics line in its log (0
+    """Each replica's counters from the last metrics line in its log, or
+    from its ``metrics()`` for a replica on a thread of this process (0
     where a counter has not appeared)."""
     out = []
     for i in range(cluster.config.n):
+        if i in cluster.threads:
+            line = cluster.threads[i].metrics()
+            out.append({key: int(line.get(key, 0)) for key in _COUNTERS})
+            continue
         log = cluster.log_path(i).read_text(errors="ignore")
         row = {}
         for key in _COUNTERS:
@@ -333,14 +338,32 @@ def run_native_config(
     flush_items: int = 0,
     batch_max_items: int = 1,
     batch_flush_us: int = 0,
+    impl="cxx",
+    metrics_ports: bool = False,
+    on_warm: Optional[Callable[[LocalCluster], None]] = None,
+    on_done: Optional[Callable[[LocalCluster], None]] = None,
 ) -> BenchResult:
-    """Config ``index`` driven through ``pbftd`` processes over loopback
-    TCP. The Byzantine config runs replica n - 1 with ``pbftd --byzantine``
-    (every outgoing signature corrupted): the honest 2f + 1 carry every
-    round. ``verifier`` is ``"cpu"`` (each replica's own verify pool) or the
-    address of a running verify service, which then reports its counts.
+    """Config ``index`` driven through replica processes over loopback TCP:
+    ``pbftd`` by default, or the runtimes ``impl`` names (``LocalCluster``:
+    ``"py"`` is the port's asyncio replica, ``"thread"`` that replica on a
+    thread of this process; one string or one per replica). The Byzantine
+    config runs replica n - 1 with ``--byzantine`` (every outgoing
+    signature corrupted): the honest 2f + 1 carry every round.
+    ``verifier`` is ``"cpu"`` (each replica's own verify pool), the address
+    of a running verify service, which then reports its counts, or, for
+    asyncio replicas, ``"cuda"`` (the card, in each replica's process).
     ``flush_us``/``flush_items`` are the replicas' verify accumulation
-    window (network.json). Raises when a request misses its reply quorum."""
+    window (network.json). With ``metrics_ports`` every replica serves
+    ``/metrics`` and ``/status`` (``cluster.metrics_ports``).
+    ``on_warm(cluster)`` runs after the warmup request, before the timed
+    region, and ``on_done(cluster)`` after the replicas' counters are read,
+    before the cluster stops. Raises when a request misses its reply
+    quorum.
+
+    ``accounting`` also holds each replica's verify windows
+    (``replica_windows``, its ``verify_batches``) and the batches that
+    replicas on a verify service verified on their own host
+    (``replica_service_fallbacks``)."""
     name, n, clients, default_requests, byzantine = CONFIGS[index]
     if pipeline is None:
         pipeline = PIPELINE.get(index, 1)
@@ -353,7 +376,7 @@ def run_native_config(
     reqs_total = requests or max(default_requests, 100, clients * pipeline * 6)
     per_worker = max(1, reqs_total // workers)
     reqs_total = per_worker * workers
-    service = None if verifier == "cpu" else verifier
+    service = None if verifier in ("cpu", "cuda") else verifier
     if trace_dir:
         # pbftd appends to its trace files: a stale run's events would join.
         Path(trace_dir).mkdir(parents=True, exist_ok=True)
@@ -371,6 +394,8 @@ def run_native_config(
         verify_flush_items=flush_items,
         batch_max_items=batch_max_items,
         batch_flush_us=batch_flush_us,
+        impl=impl,
+        metrics_ports=metrics_ports,
     ) as cluster:
         f_val = cluster.config.f
         handles = [PbftClient(cluster.config) for _ in range(workers)]
@@ -378,6 +403,8 @@ def run_native_config(
             # A generous warmup with retransmission (a first window may find
             # a service still capturing; the client's retry keeps it alive).
             handles[0].request_with_retry("warmup", timeout=600, retry_every=5)
+            if on_warm is not None:
+                on_warm(cluster)
             timed0 = _service_status(service) if service else {}
             t0 = time.perf_counter()
             t0_mono = time.monotonic()  # client stamps are monotonic
@@ -422,6 +449,8 @@ def run_native_config(
             if now == counters and now_service["items"] == life1["items"]:
                 break
             counters, life1 = now, now_service
+        if on_done is not None:
+            on_done(cluster)
     total = {key: sum(c[key] for c in counters) for key in _COUNTERS}
     rounds_max = max(c["rounds_executed"] for c in counters)
     accounting = {
@@ -429,6 +458,8 @@ def run_native_config(
         "replica_sig_rejected": total["sig_rejected"],
         "verify_deadline_fired": total["verify_deadline_fired"],
         "view_changes_started": total["view_changes_started"],
+        "replica_windows": [c["verify_batches"] for c in counters],
+        "replica_service_fallbacks": total["verify_service_fallbacks"],
     }
     if service:
         accounting["service_items"] = _delta(life1, life0, "items")

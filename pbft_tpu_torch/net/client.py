@@ -1,5 +1,4 @@
-"""The PBFT client (the port's copy of ``pbft_tpu/net/client.py``, cut to
-what the bench harness drives).
+"""The PBFT client (the port's copy of ``pbft_tpu/net/client.py``).
 
 A client sends a raw-JSON ``ClientRequest`` line over TCP to a replica and
 runs a listener on its advertised dial-back address; it accepts a result
@@ -8,6 +7,11 @@ replies in one view when some are tentative. A reply votes only when its
 Ed25519 signature is valid for the replica it names, checked once, when it
 arrives, with ``native.host_batch_verify`` (the C++ core's verify pool; the
 oracle only while the core is still being built).
+
+An explicit ``{"type": "overloaded"}`` line (a replica's or a gateway's
+admission control) never votes: ``request_with_retry`` counts it in
+``overload_rejections`` and backs off in place instead of rotating and
+broadcasting.
 """
 
 from __future__ import annotations
@@ -94,6 +98,18 @@ class PbftClient:
 
     # -- request path -------------------------------------------------------
 
+    def request(self, operation: str, to_replica: int = 0, timestamp: Optional[int] = None) -> ClientRequest:
+        """Send one raw-JSON request to a replica (the primary by default)."""
+        if timestamp is None:
+            self._timestamp += 1
+            timestamp = self._timestamp
+        req = ClientRequest(operation=operation, timestamp=timestamp, client=self.address)
+        ident = self.config.identity(to_replica)
+        self._stamp_send(timestamp)
+        with _dial(ident.host, ident.port) as s:
+            s.sendall(req.canonical() + b"\n")
+        return req
+
     def request_many(
         self,
         operations: List[str],
@@ -139,10 +155,31 @@ class PbftClient:
         with self._lock:
             self.replies = [r for r in self.replies if r.get("timestamp", 0) > timestamp]
 
+    # Overload rejections absorbed across every request_with_retry call:
+    # explicit {"type": "overloaded"} replies, not timeouts.
+    overload_rejections = 0
+
+    def _consume_overloaded(self, timestamp: int) -> int:
+        """Remove and count the explicit overload rejections for
+        ``timestamp`` from the reply stream (they carry no signature, so
+        the quorum count never sees them)."""
+        with self._lock:
+            kept = [r for r in self.replies if not (r.get("type") == "overloaded" and r.get("timestamp") == timestamp)]
+            hits = len(self.replies) - len(kept)
+            if hits:
+                self.replies = kept
+        return hits
+
     def request_with_retry(self, operation: str, timeout: float = 20.0, retry_every: float = 2.0) -> str:
         """Send to the primary; at each retransmission timer expiry rotate
         the direct target and broadcast to every replica, with jittered
-        exponential backoff between retries, until ``timeout``."""
+        exponential backoff between retries, until ``timeout``.
+
+        An overload rejection is not a timeout: the cluster is alive and
+        asked for less, so the client backs off (with jitter) and resends
+        to the same target only, without rotating or broadcasting, which
+        would multiply the load n-fold. Rejections add to
+        ``overload_rejections`` and to the request's latency record."""
         self._timestamp += 1
         ts = self._timestamp
         payload = ClientRequest(operation=operation, timestamp=ts, client=self.address).canonical() + b"\n"
@@ -150,6 +187,7 @@ class PbftClient:
         self._broadcast(payload, [0])
         deadline = time.monotonic() + timeout
         attempt = 0
+        target = 0
         rng = random.Random()
         while True:
             wait = min(retry_every * (1.5**attempt), 4 * retry_every) * (0.5 + rng.random())
@@ -157,23 +195,32 @@ class PbftClient:
             try:
                 return self.wait_result(ts, timeout=wait)
             except TimeoutError:
+                rejected = self._consume_overloaded(ts)
                 if time.monotonic() >= deadline:
                     raise
                 attempt += 1
-                self._broadcast(payload, [attempt % self.config.n, *range(self.config.n)])
+                if rejected:
+                    self.overload_rejections += rejected
+                    rec = self.latency_log.get(ts)
+                    if rec is not None:
+                        rec["overloaded"] = rec.get("overloaded", 0) + rejected
+                    self._broadcast(payload, [target])
+                    continue
+                target = attempt % self.config.n
+                self._broadcast(payload, [target, *range(self.config.n)])
 
     # -- latency export -----------------------------------------------------
 
     def latency_records(self) -> List[dict]:
-        """{client, req_ts, send[, first_reply, quorum]} per request, in
-        send order."""
+        """{client, req_ts, send[, first_reply, quorum, overloaded]} per
+        request, in send order."""
         out = []
         for ts in sorted(self.latency_log):
             rec = self.latency_log[ts]
             if "send" not in rec:
                 continue
             row = {"client": self.address, "req_ts": ts, "send": rec["send"]}
-            row.update({k: rec[k] for k in ("first_reply", "quorum") if k in rec})
+            row.update({k: rec[k] for k in ("first_reply", "quorum", "overloaded") if k in rec})
             out.append(row)
         return out
 
@@ -187,6 +234,8 @@ class PbftClient:
             tracer = Tracer(fh)
             for row in self.latency_records():
                 extra = {k: round(row[k], 6) for k in ("first_reply", "quorum") if k in row}
+                if "overloaded" in row:  # a count of rejections, not a stamp
+                    extra["overloaded"] = int(row["overloaded"])
                 tracer.event("client_request", client=row["client"], req_ts=row["req_ts"],
                              send=round(row["send"], 6), **extra)
                 n += 1

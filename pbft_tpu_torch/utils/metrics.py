@@ -1,12 +1,14 @@
-"""The metrics registry and its scrape server (the port's copy of the
-service's part of ``pbft_tpu/utils/metrics.py``).
+"""Metrics registry, consensus-phase spans and the scrape server for the
+replica runtime and the verify service (the port's copy of
+``pbft_tpu/utils/metrics.py``, whole).
 
 Same discipline as ``Tracer`` (trace.py): every record path is a plain
-attribute check when disabled. The service updates its metrics under its
-dispatcher's lock; a concurrent scrape thread reads ints and floats that
-are each updated atomically under CPython's GIL, so a scrape may observe a
-histogram mid-update (count ahead of sum by one observation), which
-Prometheus tolerates.
+attribute check when disabled, and the enabled fast path is lock-free for
+the single writer that owns the runtime (the asyncio loop in server.py; the
+service updates its metrics under its dispatcher's lock). A concurrent
+scrape thread reads ints and floats that are each updated atomically under
+CPython's GIL, so a scrape may observe a histogram mid-update (count ahead
+of sum by one observation), which Prometheus tolerates.
 
 Metric names, types and bucket edges come from ``trace_schema.py``: a name
 outside the manifest raises rather than minting an ad-hoc series.
@@ -16,11 +18,55 @@ from __future__ import annotations
 
 import bisect
 import json
+import os
 import threading
+import time
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 
 from . import trace_schema
+from .trace import Tracer
+
+
+# -- process resource readers (the health document) -------------------------
+#
+# C++ mirror: read_rss_bytes/count_open_fds in core/net.cc. Both prefer
+# /proc/self (live resident set, not the ru_maxrss high-water mark) and
+# return 0 where /proc is absent — the detectors treat a zero reading as
+# "no data", never as a leak baseline.
+
+def read_rss_bytes() -> int:
+    """Current resident set in bytes (/proc/self/statm field 2 x page)."""
+    try:
+        with open("/proc/self/statm") as f:
+            rss_pages = int(f.read().split()[1])
+        return rss_pages * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        try:
+            import resource
+
+            return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        except (ImportError, OSError):
+            return 0
+
+
+def count_open_fds() -> int:
+    """Open file descriptors for this process (/proc/self/fd entries)."""
+    try:
+        return len(os.listdir("/proc/self/fd"))
+    except OSError:
+        return 0
+
+
+def file_size_bytes(path: Optional[str]) -> int:
+    """On-disk size of ``path`` (0 when unset/absent) — the WAL gauge."""
+    if not path:
+        return 0
+    try:
+        return os.stat(path).st_size
+    except OSError:
+        return 0
 
 
 class Counter:
@@ -167,6 +213,74 @@ class MetricsRegistry:
                 out.append(f"{name}_sum{self._label_str()} {self._fmt(round(m.sum, 9))}")
                 out.append(f"{name}_count{self._label_str()} {m.count}")
         return "\n".join(out) + "\n"
+
+
+class ConsensusSpans:
+    """Per-(view, seq) consensus-phase spans, fed by Replica.phase_hook.
+
+    The replica state machine stays clock-free (its determinism is what
+    makes it testable): it only reports *transitions*; this tracker stamps
+    them with the runtime's monotonic clock. At the "executed" transition
+    the span closes: phase latencies go to the manifest histograms and one
+    ``consensus_span`` trace event carries the absolute stamps (comparable
+    across processes on one host — CLOCK_MONOTONIC is per-boot), which is
+    what scripts/consensus_timeline.py merges across replicas.
+
+    Bounded: at most ``max_open`` open spans; a slot that never executes
+    (view abandoned, replica crashed mid-protocol) is evicted oldest-first
+    rather than leaking.
+    """
+
+    def __init__(
+        self,
+        registry: MetricsRegistry,
+        tracer: Optional[Tracer] = None,
+        replica: int = -1,
+        clock: Callable[[], float] = time.monotonic,
+        max_open: int = 4096,
+    ):
+        self.registry = registry
+        self.tracer = tracer
+        self.replica = replica
+        self.clock = clock
+        self.max_open = max_open
+        self._open: "OrderedDict[Tuple[int, int], Dict[str, float]]" = OrderedDict()
+        self._hists = {
+            pair: registry.histogram(name)
+            for pair, name in trace_schema.PHASE_HISTOGRAMS.items()
+        }
+        self._e2e = registry.histogram("pbft_request_reply_seconds")
+        self._executed = registry.counter("pbft_executed_total")
+
+    def on_phase(self, phase: str, view: int, seq: int) -> None:
+        now = self.clock()
+        key = (view, seq)
+        span = self._open.get(key)
+        if span is None:
+            if phase == "executed":
+                return  # span evicted or never opened: nothing to close
+            if len(self._open) >= self.max_open:
+                self._open.popitem(last=False)
+            span = self._open[key] = {}
+        span.setdefault(phase, now)
+        if phase != "executed":
+            return
+        del self._open[key]
+        self._executed.inc()
+        for (a, b), hist in self._hists.items():
+            ta, tb = span.get(a), span.get(b)
+            if ta is not None and tb is not None:
+                hist.observe(max(0.0, tb - ta))
+        start = span.get("request", span.get("pre_prepare"))
+        if start is not None:
+            self._e2e.observe(max(0.0, now - start))
+        if self.tracer is not None and self.tracer.enabled:
+            fields = {
+                p: round(t, 6) for p, t in span.items() if p in trace_schema.PHASES
+            }
+            self.tracer.event(
+                "consensus_span", replica=self.replica, view=view, seq=seq, **fields
+            )
 
 
 def start_metrics_server(

@@ -36,7 +36,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "consensus/__init__.py", "consensus/messages.py", "consensus/config.py", "net/launcher.py",
         "net/client.py", "utils/waterfall.py", "bench/__init__.py", "bench/harness.py",
         "consensus/wal.py", "consensus/replica.py", "consensus/simulation.py", "consensus/invariants.py",
-        "consensus/faults.py",
+        "consensus/faults.py", "net/server.py", "net/secure.py", "net/discovery.py", "net/gateway.py",
+        "utils/flight.py", "utils/__init__.py", "net/__init__.py",
     ):
         assert os.path.join(_REPO, "pbft_tpu_torch", name) in files, name
     bad = []

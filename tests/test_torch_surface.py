@@ -119,13 +119,24 @@ def _wait_ready(daemon):
     assert daemon.state == STATE_READY
 
 
+def _service_events():
+    return {k: v for k, v in schema.EVENT_SCHEMAS.items() if "service.py" in v["emitters"]}
+
+
+def _service_metrics():
+    return {k: v for k, v in schema.METRIC_SCHEMAS.items() if v[1] & {"service.py", "verify_service.py"}}
+
+
 def test_manifest_is_the_jax_manifests_service_subset():
+    # The port carries the whole manifest (the asyncio replica emits the
+    # rest); the service's part is the JAX manifest's service part.
     want_events = {k: v for k, v in jax_schema.EVENT_SCHEMAS.items() if "service.py" in v["emitters"]}
     want_metrics = {
         k: v for k, v in jax_schema.METRIC_SCHEMAS.items() if v[1] & {"service.py", "verify_service.py"}
     }
-    assert schema.EVENT_SCHEMAS == want_events
-    assert schema.METRIC_SCHEMAS == want_metrics
+    assert schema.EVENT_SCHEMAS == jax_schema.EVENT_SCHEMAS
+    assert schema.METRIC_SCHEMAS == jax_schema.METRIC_SCHEMAS
+    assert _service_events() == want_events and _service_metrics() == want_metrics
     assert schema.LATENCY_BUCKETS_S == jax_schema.LATENCY_BUCKETS_S
     assert schema.BATCH_SIZE_BUCKETS == jax_schema.BATCH_SIZE_BUCKETS
     for name, (kind, _) in schema.METRIC_SCHEMAS.items():
@@ -209,7 +220,7 @@ def test_daemon_scrape_before_traffic_equals_the_jax_daemons():
     try:
         scrape = _get(port.service.metrics_listen_port)
         assert scrape == _get(jax.service.metrics_listen_port)
-        assert _series(scrape) == set(schema.METRIC_SCHEMAS)
+        assert _series(scrape) == set(_service_metrics())
         status = _get(port.service.metrics_listen_port, "/status")
         assert '"state": "cpu-only"' in status and '"backend": "cpu"' in status
     finally:
@@ -269,7 +280,7 @@ def test_trace_lines_validate_against_the_manifest(tmp_path):
         gate.set()
         svc.stop()
     events = [json.loads(line) for line in trace.read_text().splitlines()]
-    assert {e["ev"] for e in events} == set(schema.EVENT_SCHEMAS)
+    assert {e["ev"] for e in events} == set(_service_events())
     for e in events:
         spec = schema.EVENT_SCHEMAS[e["ev"]]
         assert "service.py" in spec["emitters"]
