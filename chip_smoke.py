@@ -109,7 +109,33 @@ and no result line:
             that verifies on the card (replicas on the daemon hold none); on
             the daemon its items equal the replicas' checks and nothing fell
             back to the host after the warm.
-10. parallel the sixth main path, pbft_tpu_torch.parallel, on B = 4,096
+10. health   the analysis layer (pbft_tpu_torch.analysis) and the operator
+            scripts that read it (pbft_tpu_torch.scripts), on the port's
+            asyncio replicas and one daemon on the card: (1) pbft_lint exits
+            0, each of its four passes clean, with the files each read; (2)
+            the daemon, a process of its own, starts on an empty --cache-dir
+            (nvcc builds the kernels there), stops, and starts again on it:
+            the second start compiles nothing (build_s, compiled,
+            cold_compile_s, graph_pool_bytes of both); (3) that daemon serves
+            chaos_bench's fault-free, crash-backup and stutter-primary arms
+            at the script's shape (n = 4, 8 clients, window 8, batch 32,
+            flush 2 ms, view-change timeout 600 ms, seed 12, fault at 2 s,
+            heal at 6 s) but 30 requests per client (cut from 120; 320 on
+            crash-backup, whose load must outlast the heal), health gate on:
+            each meets its completion bar (100, 100, 97%) with no detector
+            verdict, the backup crashes and heals under load and catches up,
+            stutter-primary changes view; (4) pbft_top
+            --gate --once over a loaded cluster exits 0; (5) endurance_soak
+            for 60 s (its CI size is 180 s) with the WAL on: gate green,
+            req/s, reply p50/p99, RSS, fd and WAL slopes; (6) trace_report,
+            consensus_timeline and flight_dump over the crash-backup arm's
+            traces and black boxes, verify_status on the daemon (ready, the
+            card's name); (7) each step: the daemon's items equal the
+            replicas' signature checks (a crashed replica's up to its last
+            metrics line), no host fallback after ready; each kernel launched
+            once per daemon window per shard (the daemon reports its counts
+            in its JSON status).
+11. parallel the sixth main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -130,7 +156,7 @@ and no result line:
             eager path, of round_step, and of verify_many on the same window;
             then one window of verify_many, (a) and (b) under torch.profiler
             (aten events, device busy ms, CUDA runtime calls).
-11. timing  CUDA-event times of each kernel's wrapper and of its plain
+12. timing  CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), a
             256-row verify_many window of 3 items (the simulation's shape),
@@ -143,8 +169,9 @@ daemon's warmup; each simulation run, after the window's
 first capture; config 0's in-process primary of the asyncio phase, after its
 warmup and a capture of shapes 16, 64 and 256 in this process, against that
 replica's windows; each asyncio daemon run and the mixed cluster, after the
-daemon's warm; each parallel path, in each of its processes) and read just
-after it: every kernel must have launched exactly
+daemon's warm; the health phase's daemon, read from its status after its
+warm and at the phase's end; each parallel path, in each of its processes)
+and read just after it: every kernel must have launched exactly
 once per window per shard that the path formed. A replay counts the
 launches its graph recorded at capture; every path's shapes are captured
 (and their eager priming runs launched) before its count starts.
@@ -155,9 +182,11 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import queue
+import re
 import socket
 import subprocess
 import sys
@@ -1253,6 +1282,255 @@ def phase_asyncio(K, VS, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The analysis layer and its gates: lint, restart, chaos, pbft_top,
+# endurance, the trace and flight tools, on one daemon on the card.
+# ---------------------------------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HEALTH_ARMS = ("fault-free", "crash-backup", "stutter-primary")
+# chaos_bench's own shape (its CLI defaults) but for the requests per
+# client, cut from 120 to 30 so that the phase fits.
+HEALTH_CHAOS = dict(n=4, clients=8, requests_each=30, window=8, batch=32, batch_flush_us=2000, impl="py",
+                    gateways=1, vc_timeout_ms=600, admission_inflight=0, admission_backlog=0, fault_at_s=2.0,
+                    heal_at_s=6.0, deadline_s=120.0, seed=12, blackbox_dir=None)
+# The crash arm's load must outlast the heal at 6 s and the revived
+# backup's catch-up, or the backup dies and comes back on an idle cluster:
+# 30 per client lasted 1.3 s on an H100 (~190 req/s), so this arm sends 320
+# per client (~12 s).
+HEALTH_CRASH_REQUESTS = 320
+HEALTH_TOP_WINDOW_S = 8  # pbft_top --once sampling window, under load
+HEALTH_ENDURANCE_S = 60  # endurance_soak's CI size is 180 s
+
+
+def _port_env() -> dict:
+    return dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def start_daemon_process(cache_dir: str, log_path: str, backend: str = "cuda", timeout: float = 600.0):
+    """The port's daemon as a process of its own (so that a restart is a
+    new process): ``python -m pbft_tpu_torch.net.verify_service --port 0
+    --wait-ready --cache-dir DIR``. Returns (Popen, the listening line: its
+    address and JSON status, printed once warm) and the wall seconds to
+    that line."""
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pbft_tpu_torch.net.verify_service", "--port", "0", "--metrics-port", "0",
+             "--wait-ready", "--backend", backend, "--cache-dir", cache_dir],
+            stdout=log, stderr=subprocess.STDOUT, cwd=HERE, env=_port_env())
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(log_path, errors="replace") as fh:
+            for line in fh:
+                if line.startswith("{") and '"verify_service_listening"' in line:
+                    return proc, json.loads(line), time.perf_counter() - t0
+        if proc.poll() is not None or time.monotonic() > deadline:
+            stop_process(proc)
+            with open(log_path, errors="replace") as fh:
+                raise PhaseFailed(f"the daemon did not warm (exit {proc.returncode}):\n{fh.read()[-3000:]}")
+        time.sleep(0.2)
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def run_module(module: str, *args, timeout: float = 300.0):
+    return subprocess.run([sys.executable, "-m", module, *map(str, args)], capture_output=True, text=True,
+                          cwd=HERE, env=_port_env(), timeout=timeout)
+
+
+def check_accounting(what: str, acc: dict, crashed: bool = False) -> None:
+    """Every signature a replica checked was verified by the daemon, and no
+    replica and not the daemon verified any on a host fallback. A replica
+    killed mid-run counts its checks up to its last metrics line, so on a
+    crash arm the daemon may have verified more, by at most one metrics
+    interval of one replica's checks (``lost_max_items``)."""
+    check(acc["service_fallback_items"] == 0 and acc["replica_service_fallbacks"] == 0,
+          f"{what}: host fallback {acc}")
+    check(acc["replica_sig_checks"] > 0 and all(c > 0 for c in acc["replica_checks"]), f"{what}: {acc}")
+    if crashed:
+        check(0 <= acc["unaccounted_items"] <= acc["lost_max_items"], f"{what}: {acc}")
+    else:
+        check(acc["unaccounted_items"] == 0, f"{what}: the daemon's items against the replicas' checks {acc}")
+
+
+def phase_health(K, VS, card: str, backend: str = "cuda") -> dict:
+    """The analysis layer and the gates that read it (pbft_tpu_torch.analysis,
+    pbft_tpu_torch.scripts), on the port's asyncio replicas and one daemon
+    on the card. (1) pbft_lint exits 0, every pass clean. (2) Restart: the
+    daemon, a process of its own, starts on an empty --cache-dir (nvcc
+    builds the kernels there), stops, and starts again on it: the second
+    start compiles nothing. (3) chaos_bench's fault-free, crash-backup and
+    stutter-primary arms on the second daemon, health gate on: each meets
+    its completion bar with no verdict, the crashed backup heals under load
+    and catches up, stutter-primary changes view.
+    (4) pbft_top --gate --once over a loaded cluster exits 0. (5)
+    endurance_soak for HEALTH_ENDURANCE_S with the WAL on: gate green.
+    (6) trace_report, consensus_timeline and flight_dump over the
+    crash-backup arm's traces and dumps, verify_status on the daemon. (7)
+    Every step: the daemon's items equal the replicas' checks, nothing on a
+    host fallback after ready; each kernel launched once per daemon window
+    per shard. ``backend="native"`` rehearses the phase without a card
+    (the restart's build checks are then skipped). Returns the launches."""
+    import tempfile
+    from pathlib import Path
+
+    from pbft_tpu_torch import native
+    from pbft_tpu_torch.net.launcher import LocalCluster
+    from pbft_tpu_torch.scripts import chaos_bench, endurance_soak
+
+    native.build()
+    phase_t0 = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-health-") as tmp:
+        # (1) the lint
+        t0 = time.perf_counter()
+        lint = run_module("pbft_tpu_torch.scripts.pbft_lint")
+        files = dict(re.findall(r"\[pbft_lint\] ([\w-]+): ok \((\d+) files\)", lint.stdout))
+        emit("health", step="lint", rc=lint.returncode, files_per_pass=files, seconds=time.perf_counter() - t0)
+        check(lint.returncode == 0 and len(files) == 4 and "all passes clean" in lint.stdout,
+              f"pbft_lint: {lint.stdout}{lint.stderr}")
+
+        # (2) the restart
+        cache = os.path.join(tmp, "cache")
+        os.mkdir(cache)
+        starts = []
+        for turn in (1, 2):
+            proc, line, start_s = start_daemon_process(cache, os.path.join(tmp, f"daemon-{turn}.log"), backend)
+            warm = line.get("warm_stats", {})
+            starts.append(warm)
+            emit("health", step="restart", start=turn, start_s=start_s, state=line["state"],
+                 build_s=warm.get("build_s"), build_compiled=warm.get("build_compiled"),
+                 build_dir=warm.get("build_dir"), compiled=warm.get("compiled"),
+                 cold_compile_s=warm.get("cold_compile_s"), warm_load_s=warm.get("warm_load_s"),
+                 graph_pool_bytes=warm.get("graph_pool_bytes"), card=card)
+            if turn == 1:
+                stop_process(proc)
+        address = line["addr"]
+        try:
+            if backend == "cuda":
+                first, second = starts
+                check(sorted(first["build_compiled"]) == sorted(K._SOURCES) and second["build_compiled"] == [],
+                      f"restart: the second start compiled {second['build_compiled']}")
+                check(first["build_dir"] == second["build_dir"]
+                      and first["build_dir"].startswith(os.path.join(cache, "")), f"restart: {starts}")
+                check(line["state"] == "ready" and first["compiled"] == second["compiled"] > 0, f"restart: {line}")
+            ready = VS.probe_status_json(address)
+            check(ready is not None and ready["fallback_items"] == 0, f"daemon after ready: {ready}")
+
+            # (3) chaos, health gate on
+            keep = os.path.join(tmp, "kept")
+            for arm in HEALTH_ARMS:
+                t0 = time.perf_counter()
+                shape = dict(HEALTH_CHAOS)
+                if arm == "crash-backup":
+                    shape["requests_each"] = HEALTH_CRASH_REQUESTS
+                row = chaos_bench.run_arm_traced(arm=arm, **shape, health_gate=True, verifier=address,
+                                                 keep_dir=keep)
+                emit("health", step="chaos", arm_s=time.perf_counter() - t0, row=row, card=card)
+                check(row["ok"] and row["completed_pct"] >= chaos_bench.COMPLETION_BAR[arm]
+                      and row["health_verdicts"] == [] and row["health_snapshots"] > 0, f"chaos {arm}: {row}")
+                if arm == "stutter-primary":
+                    check(row["view_changes_started"] >= 1 and row["vc_latency_ms"]["count"] >= 1,
+                          f"chaos {arm}: no view change {row}")
+                elif arm == "crash-backup":
+                    check(row["seconds"] > shape["heal_at_s"] and row["recovery_after_heal_s"] >= 0,
+                          f"chaos {arm}: the load ended before the heal, or the backup never caught up {row}")
+                else:
+                    check(row["view_changes_started"] == 0, f"chaos {arm}: view changes {row}")
+                check_accounting(f"chaos {arm}", row["verify_accounting"], crashed=arm == "crash-backup")
+
+            # (4) pbft_top --gate --once over a loaded cluster
+            t0 = time.perf_counter()
+            status0 = VS.probe_status_json(address)
+            flight = os.path.join(tmp, "top-flight")
+            with LocalCluster(n=4, impl="py", verifier=address, metrics_ports=True, batch_max_items=32,
+                              batch_flush_us=2000, flight_dir=flight) as cluster:
+                cfg = os.path.join(cluster.tmpdir.name, "network.json")
+                gw, gw_port = chaos_bench.start_gateway(cfg, Path(tmp) / "top-gateway.log")
+                try:
+                    load = endurance_soak.LoadThread(gw_port, 4, 50, 8, quorum=2,
+                                                     deadline=time.monotonic() + HEALTH_TOP_WINDOW_S + 4)
+                    load.start()
+                    top = run_module("pbft_tpu_torch.scripts.pbft_top", "--targets",
+                                     ",".join(f"127.0.0.1:{p}" for p in cluster.metrics_ports), "--gate", "--once",
+                                     "--window-s", HEALTH_TOP_WINDOW_S, "--interval", 1, "--flight-dir", flight)
+                    load.join(timeout=90)
+                    acc = chaos_bench.verify_accounting(cluster, address, status0, read=lambda: [
+                        [[json.loads(_scrape(p, "/status"))]] for p in cluster.metrics_ports])
+                finally:
+                    stop_process(gw)
+            verdict = json.loads(top.stdout.strip().splitlines()[-1]) if top.stdout.strip() else {}
+            emit("health", step="pbft_top", rc=top.returncode, verdict=verdict, load_completed=load.completed,
+                 load_attempted=load.attempted, accounting=acc, seconds=time.perf_counter() - t0, card=card)
+            check(top.returncode == 0 and verdict.get("ok") is True and verdict.get("snapshots", 0) >= 2,
+                  f"pbft_top: {top.stdout[-2000:]}{top.stderr[-2000:]}")
+            check(load.error is None and load.completed > 0, f"pbft_top load: {load.error}")
+            check_accounting("pbft_top", acc)
+
+            # (5) endurance, WAL on
+            t0 = time.perf_counter()
+            out = os.path.join(tmp, "endurance.jsonl")
+            soak = run_module("pbft_tpu_torch.scripts.endurance_soak", "--duration-s", HEALTH_ENDURANCE_S,
+                              "--verifier", address, "--out", out, timeout=HEALTH_ENDURANCE_S + 300)
+            row = json.loads(open(out).read().splitlines()[-1]) if os.path.exists(out) else {}
+            emit("health", step="endurance", rc=soak.returncode, seconds=time.perf_counter() - t0,
+                 requests_per_sec=row.get("requests_per_sec"), reply_p50_ms=row.get("reply_p50_ms"),
+                 reply_p99_ms=row.get("reply_p99_ms"), slopes_per_s=row.get("slopes_per_s"), row=row, card=card)
+            check(soak.returncode == 0 and row.get("ok") and row["health_verdicts"] == [] and row["requests"] > 0,
+                  f"endurance: {soak.stdout[-2000:]}{soak.stderr[-2000:]}")
+            check_accounting("endurance", row["verify_accounting"])
+
+            # (6) the trace and flight tools, verify_status
+            kept = os.path.join(keep, f"crash-backup-seed{HEALTH_CHAOS['seed']}")
+            report = run_module("pbft_tpu_torch.scripts.trace_report", os.path.join(kept, "traces"))
+            m = re.search(r"cluster: (\d+) verifications in (\d+) launches", report.stdout)
+            timeline = run_module("pbft_tpu_torch.scripts.consensus_timeline", os.path.join(kept, "traces"), "--json")
+            rounds = len(json.loads(timeline.stdout)["slots"]) if timeline.returncode == 0 else 0
+            dumps = sorted(glob.glob(os.path.join(kept, "flight", "replica-*.flight")))
+            fdump = run_module("pbft_tpu_torch.scripts.flight_dump", *dumps, "--json")
+            records = {os.path.basename(k): len(v) for k, v in json.loads(fdump.stdout or "{}").items()}
+            vstatus = run_module("pbft_tpu_torch.scripts.verify_status", address)
+            emit("health", step="tools", trace_report_rc=report.returncode,
+                 batches=int(m.group(2)) if m else 0, items=int(m.group(1)) if m else 0,
+                 consensus_timeline_rc=timeline.returncode, rounds=rounds, flight_dump_rc=fdump.returncode,
+                 flight_records=records, verify_status_rc=vstatus.returncode, verify_status=vstatus.stdout,
+                 card=card)
+            check(report.returncode == 0 and m and int(m.group(2)) > 0, f"trace_report: {report.stdout}{report.stderr}")
+            check(timeline.returncode == 0 and rounds > 0, f"consensus_timeline: {timeline.stderr[-2000:]}")
+            check(fdump.returncode == 0 and any(n > 0 for n in records.values()), f"flight_dump: {fdump.stderr}")
+            want_state = "ready" if backend == "cuda" else "cpu-only"
+            check(vstatus.returncode == 0 and f"state           {want_state}" in vstatus.stdout
+                  and (backend != "cuda" or torch_card_name(card) in vstatus.stdout),
+                  f"verify_status: {vstatus.stdout}{vstatus.stderr}")
+
+            # (7) the daemon's windows against each kernel's launches
+            end = VS.probe_status_json(address)
+            check(end["fallback_items"] == 0, f"daemon fallback items {end}")
+            if backend == "cuda":
+                got = {k: end["kernel_launches"][k] - ready["kernel_launches"][k] for k in K.KERNELS}
+                launches["health"] = check_launches(K, "health", end["launches"] - ready["launches"],
+                                                    end["devices"], got=got)
+            emit("health", daemon_items=end["items"] - ready["items"], daemon_windows=end["launches"] - ready["launches"],
+                 phase_s=time.perf_counter() - phase_t0, card=card)
+        finally:
+            stop_process(proc)
+    return launches
+
+
+def torch_card_name(card: str) -> str:
+    """The card's name from the nvidia-smi line (``name, power limit``)."""
+    return card.split(",")[0].strip()
+
+
+# ---------------------------------------------------------------------------
 # The compile step: captured windows against the eager path.
 # ---------------------------------------------------------------------------
 
@@ -1815,6 +2093,8 @@ def main() -> int:
         launches.update(phase_simulation(K, card))
         phase = "asyncio"
         launches.update(phase_asyncio(K, VS, card))
+        phase = "health"
+        launches.update(phase_health(K, VS, card))
         phase = "parallel"
         launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
         phase = "timing"

@@ -25,7 +25,10 @@ graph instead (``recording``, ``add_launches``).
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use, one
 process per source started together, into plain-C shared libraries loaded
 with ``ctypes``: ``build/pbft_tpu_torch/<hash of sources, arch, nvcc>/``
-under the repository root. Nothing is compiled when this module is imported.
+under the repository root, or ``<host_keyed_cache_dir(cache_dir)>/<hash>/``
+when ``build`` is given a ``cache_dir`` (the verify daemon's
+``--cache-dir``): a directory that holds the libraries already is loaded
+without compiling. Nothing is compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -141,11 +144,26 @@ def _parse_ptxas(text: str) -> dict:
     return out
 
 
-def build() -> dict:
-    """Compile (if needed) and load the kernel libraries; idempotent.
+def build_root(cache_dir=None) -> Path:
+    """The directory under which ``build`` keeps one subdirectory per hash
+    of sources, arch and nvcc: ``build/pbft_tpu_torch/`` in the repository,
+    or ``host_keyed_cache_dir(cache_dir)`` (``utils/cache.py``)."""
+    if cache_dir is None:
+        return _BUILD_ROOT
+    from ..utils.cache import host_keyed_cache_dir
 
-    Returns ``BUILD_INFO``: the build directory, seconds spent, whether
-    anything was compiled, and per-kernel registers/spills from ptxas."""
+    return Path(host_keyed_cache_dir(os.fspath(cache_dir)))
+
+
+def build(cache_dir=None) -> dict:
+    """Compile (if needed) and load the kernel libraries; idempotent: the
+    first call of a process loads its libraries, and later calls return
+    them, whatever their ``cache_dir``.
+
+    Returns ``BUILD_INFO``: the build directory (under
+    ``build_root(cache_dir)``), seconds spent, the libraries compiled
+    (``compiled``: none when the directory held them), and per-kernel
+    registers/spills from ptxas."""
     with _build_lock:
         if len(_libs) == len(_SOURCES):
             return BUILD_INFO
@@ -155,7 +173,7 @@ def build() -> dict:
         h = hashlib.sha256(f"{ARCH}\n{version}".encode())
         for name in sorted(list(_SOURCES.values()) + list(_HEADERS)):
             h.update(name.encode() + b"\0" + (_CSRC / name).read_bytes())
-        out_dir = _BUILD_ROOT / h.hexdigest()[:16]
+        out_dir = build_root(cache_dir) / h.hexdigest()[:16]
         out_dir.mkdir(parents=True, exist_ok=True)
         procs = {}
         for lib, src in _SOURCES.items():

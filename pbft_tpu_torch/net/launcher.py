@@ -127,9 +127,9 @@ class ThreadReplica:
             self.loop.close()
 
     def metrics(self) -> dict:
-        """The replica's ``metrics()`` line, read on the caller's thread (it
-        reads only state that is safe to read from another thread)."""
-        return self.server.metrics()
+        """The replica's ``metrics()`` line, built on its event loop
+        (``AsyncReplicaServer.status``)."""
+        return self.server.status()
 
     async def _stop_server(self, timeout: float) -> None:
         # server.stop() waits for its inbound connections to close (Python

@@ -209,7 +209,9 @@ class ViewTimerBackoff:
     """Pure §4.5.2 view-timer policy, shared semantics with
     core/net.cc check_progress_timer and unit-tested in
     tests/test_view_change.py. The runtime polls it with the current
-    clock and progress markers; the policy answers what to do:
+    clock and a progress count (``AsyncReplicaServer._timer_progress``,
+    which, unlike core/net.cc, also credits sequences committed above a
+    gap in the replica's execution); the policy answers what to do:
 
       "armed"      a fresh deadline was set (timeout_s x level)
       "idle"       deadline not reached yet
@@ -332,6 +334,7 @@ class AsyncReplicaServer:
             self.metrics_registry.preregister()  # full replica series set
         self.metrics_port = metrics_port
         self._metrics_server = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None  # set by start()
         self.metrics_listen_port = 0
         # Black-box flight recorder (utils/flight.py): the last N
         # protocol events in a bounded ring, dumped on SIGTERM/fatal (the
@@ -503,6 +506,10 @@ class AsyncReplicaServer:
         self._waiting_requests: Dict[Tuple[str, int], float] = {}
         self._state_retry_deadline: Optional[float] = None
         self._vc_policy = ViewTimerBackoff(vc_timeout)
+        # The view timer's progress count (_timer_progress): bumped when
+        # execution advances or a gap's committed suffix grows.
+        self._progress_ticks = 0
+        self._progress_seen = (0, 0)
         self._gauged_backoff = 1  # last backoff level pushed to the gauge
         # Admission control: explicit overload rejections
         # instead of silent queueing — config.admission_inflight caps a
@@ -530,6 +537,7 @@ class AsyncReplicaServer:
             self._on_connection, host="0.0.0.0", port=ident.port
         )
         self.listen_port = self._server.sockets[0].getsockname()[1]
+        self._loop = asyncio.get_running_loop()
         # Multi-core key: pbftd shards its event loop across
         # net_threads; this runtime is one asyncio loop by design — accept
         # the network.json key, say so, and expose the gauge as 1 so a
@@ -564,13 +572,14 @@ class AsyncReplicaServer:
                 self.discovery_target, self.id, self.listen_port, self.config.n
             ).start()
         if self.metrics_port is not None:
-            # /status serves the health document. metrics()
-            # runs on the scrape thread there: it only reads GIL-atomic
-            # runtime state (ints, preset-key dicts) — same contract as
-            # the registry reads the Prometheus path does.
+            # /status serves the health document, built on this loop by
+            # status() (the scrape thread waits for it): a document read
+            # from the scrape thread could pair one committed_upto with
+            # the chain digest of a later execution, which the divergence
+            # detector reads as a fork.
             self._metrics_server = start_metrics_server(
                 self.metrics_registry, self.metrics_port,
-                status_fn=self.metrics,
+                status_fn=self.status,
             )
             self.metrics_listen_port = self._metrics_server.server_address[1]
         asyncio.get_running_loop().create_task(self._batch_pump())
@@ -1658,6 +1667,12 @@ class AsyncReplicaServer:
                 if now - t > 10 * self.vc_timeout
             ]:
                 del self._waiting_requests[key]
+            # Forwarded requests that this replica's state has executed
+            # wait for nothing: a state transfer installs executions that
+            # emit no reply here, and they must not hold the timer.
+            done = self.replica.last_timestamp
+            for key in [k for k in self._waiting_requests if k[1] <= done.get(k[0], 0)]:
+                del self._waiting_requests[key]
             if self.replica.awaiting_state is not None:
                 # A lagging replica waiting on state transfer retries the
                 # fetch once per vc_timeout (mirrors core/net.cc) — a view
@@ -1677,10 +1692,7 @@ class AsyncReplicaServer:
                 continue
             state = self._vc_policy.poll(
                 now,
-                # Tentative mode: progress = COMMITTED sequences, so a
-                # commit-starved cluster still escalates (tentative
-                # executions roll back — they must not placate the timer).
-                self.replica.progress_marker(),
+                self._timer_progress(),
                 self.replica.view,
                 self.replica.in_view_change,
             )
@@ -1728,6 +1740,40 @@ class AsyncReplicaServer:
                 )
                 self._emit(self.replica.start_view_change())
             self._observe_backoff_level()
+
+    def _gap_commits(self) -> int:
+        """The highest sequence committed in this view above a gap in this
+        replica's execution, capped at the checkpoint that must close the
+        gap; 0 without a gap. A replica that missed sequences (revived
+        with fresh state, or cut off) holds later ones committed by 2f+1
+        replicas but cannot execute them until that checkpoint's state
+        transfer: commits that keep arriving show the primary ordering,
+        and the replica waits for the checkpoint rather than start a view
+        change that no peer joins. Past the checkpoint the credit stops,
+        so a primary that skips a sequence delays the view change by at
+        most one checkpoint interval of its own ordering. Signature mode
+        only (tentative mode counts committed sequences already)."""
+        r = self.replica
+        if r.config.tentative or r.in_view_change or not r.pending_execution:
+            return 0
+        top = max(r.pending_execution)
+        missing = [s for s in range(r.executed_upto + 1, top) if s not in r.pending_execution]
+        if not missing:
+            return 0
+        interval = r.config.checkpoint_interval
+        return min(top, -(-missing[-1] // interval) * interval)
+
+    def _timer_progress(self) -> int:
+        """What the view timer counts as progress: a count bumped when the
+        replica's progress marker advances (COMMITTED sequences in
+        tentative mode: tentative executions roll back, so they must not
+        placate the timer while commits starve; executed ones otherwise),
+        or when ``_gap_commits`` grows."""
+        seen = (self.replica.progress_marker(), self._gap_commits())
+        if seen[0] > self._progress_seen[0] or seen[1] > self._progress_seen[1]:
+            self._progress_ticks += 1
+        self._progress_seen = seen
+        return self._progress_ticks
 
     def _observe_backoff_level(self) -> None:
         """Push the view-timer backoff level to the gauge + flight
@@ -1784,6 +1830,19 @@ class AsyncReplicaServer:
             "chain_digest": self.replica.committed_chain.hex(),
             "state_digest": self.replica.state_digest.hex(),
         }
+
+    def status(self, timeout: float = 5.0) -> dict:
+        """``metrics()`` for a caller on another thread (the /status scrape
+        thread, a ThreadReplica's caller): built on the replica's event
+        loop, so that the document is one moment of the replica. Read
+        directly on the loop's own thread or when the loop does not run."""
+        loop = self._loop
+        if loop is None or not loop.is_running() or loop is _running_loop():
+            return self.metrics()
+        return asyncio.run_coroutine_threadsafe(self._metrics_on_loop(), loop).result(timeout)
+
+    async def _metrics_on_loop(self) -> dict:
+        return self.metrics()
 
     def metrics(self) -> dict:
         return {
@@ -1844,6 +1903,13 @@ class AsyncReplicaServer:
             **self._refresh_health(),
             **self.replica.counters,
         }
+
+
+def _running_loop() -> Optional[asyncio.AbstractEventLoop]:
+    try:
+        return asyncio.get_running_loop()
+    except RuntimeError:
+        return None
 
 
 async def _amain(args, config_text: str, flight=None, wal=None) -> None:

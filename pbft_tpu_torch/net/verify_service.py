@@ -39,14 +39,22 @@ Metrics (``metrics_port``): the service's series (``service.py``) and the
 daemon's (``verify_service.py``: the cold and warm compile gauges, set after
 a successful warm), on ``/metrics``, and the JSON status on ``/status``.
 
+Restarts: the kernel libraries are cached by a hash of their sources, the
+arch and nvcc, under ``build/pbft_tpu_torch/`` by default or, with
+``--cache-dir DIR`` (the JAX daemon's flag), under
+``host_keyed_cache_dir(DIR)`` (``utils/cache.py``), so a restart on the
+same host compiles nothing (``warm_stats`` ``build_compiled`` is empty) and
+a cache from another host is never read. The JSON status reports the
+kernels' launch counts in this process (``kernel_launches``).
+
 Deliberate differences from the JAX daemon: no ``auto`` backend, which
 would flip to ``cpu-only`` when the card fails (a failed warm is raised);
-no ``--cache-dir``/``--export-dir``: the kernels are cached by a hash of
-their sources under ``build/``, and CUDA graphs cannot be serialized, so
-every start captures its graphs anew.
+no ``--export-dir``: CUDA graphs cannot be serialized, so every start
+captures its graphs anew (``cold_compile_s``).
 
 CLI: ``python -m pbft_tpu_torch.net.verify_service --port 7600 [--devices N]
-[--device cpu] [--backend cuda|native|cpu] [--metrics-port N]``.
+[--device cpu] [--backend cuda|native|cpu] [--metrics-port N]
+[--cache-dir DIR]``.
 """
 
 from __future__ import annotations
@@ -92,6 +100,7 @@ class CudaVerifyEngine:
     one shape that may run at once (the daemon passes its ``inflight``).
     ``kernel`` replaces ``ed25519.verify_kernel`` ((B,32),(B,32),(B,64)
     uint8 tensors -> (B,) bool tensor); tests pass a cheap stand-in.
+    ``cache_dir`` roots the kernel build (``kernels.build_root``).
     Devices are resolved at ``warm()``."""
 
     def __init__(
@@ -101,6 +110,7 @@ class CudaVerifyEngine:
         kernel=None,
         devices: Optional[int] = None,
         slots: int = 1,
+        cache_dir: Optional[str] = None,
     ):
         if shapes is None:
             from ..crypto.batch import _PAD_LADDER
@@ -111,6 +121,7 @@ class CudaVerifyEngine:
         self._want_devices = devices
         self._slots = max(1, slots)
         self._kernel = kernel
+        self.cache_dir = cache_dir
         self._lock = threading.Lock()
         self._fns: dict = {}  # padded window size -> compiled sharded window
         self.device_count = 0
@@ -137,7 +148,9 @@ class CudaVerifyEngine:
         (shapes x shards x slots), ``aot_loaded`` is 0 (a CUDA graph cannot
         be serialized), ``cold_compile_s`` is the whole warmup (kernel
         build, priming runs, captures and instantiations included),
-        ``build_s`` the build or load of the kernel library alone, ``slots``
+        ``build_s`` the build or load of the kernel library alone,
+        ``build_compiled`` the libraries nvcc compiled for it (none when
+        the build directory, ``build_dir``, held them), ``slots``
         the slots per shape, ``compile_s_by_shape`` each shape's priming
         runs, captures, instantiations and all-pad window, and
         ``graph_pool_bytes`` (``_by_shape``) the device memory each shape's
@@ -172,13 +185,18 @@ class CudaVerifyEngine:
                 "warm_load_s": 0.0,
                 "cold_compile_s": 0.0,
                 "build_s": 0.0,
+                "build_compiled": [],
+                "build_dir": None,
                 "slots": self._slots,
                 "graph_pool_bytes": 0,
                 "compile_s_by_shape": {},
                 "graph_pool_bytes_by_shape": {},
             }
             if dev.type == "cuda" and self._kernel is None:
-                stats["build_s"] = round(kernels.build()["build_s"], 3)
+                info = kernels.build(self.cache_dir)
+                stats["build_s"] = round(info["build_s"], 3)
+                stats["build_compiled"] = list(info["compiled"])
+                stats["build_dir"] = info["dir"]
             fns = {}
             for want in self._want_shapes:
                 size = -(-want // mesh.size) * mesh.size
@@ -254,6 +272,7 @@ class VerifyServiceDaemon:
         metrics_port: Optional[int] = None,
         engine: Optional[CudaVerifyEngine] = None,
         fallback: Optional[Callable[[List[Item]], List[bool]]] = None,
+        cache_dir: Optional[str] = None,
     ):
         if backend not in ("cuda", "native", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -265,7 +284,9 @@ class VerifyServiceDaemon:
         self._warm_thread: Optional[threading.Thread] = None
         self.engine = engine
         if engine is None and backend == "cuda":
-            self.engine = CudaVerifyEngine(shapes=warm_shapes, device=device, devices=devices, slots=inflight)
+            self.engine = CudaVerifyEngine(
+                shapes=warm_shapes, device=device, devices=devices, slots=inflight, cache_dir=cache_dir
+            )
         if fallback is None:
             if backend == "native":
                 from .. import native
@@ -353,6 +374,10 @@ class VerifyServiceDaemon:
         }
         if eng and eng.stats:
             out["warm_stats"] = eng.stats
+        if self.backend == "cuda":
+            from ..crypto import kernels
+
+            out["kernel_launches"] = dict(kernels.LAUNCHES)
         if self.warm_error is not None:
             out["warm_error"] = f"{type(self.warm_error).__name__}: {self.warm_error}"
         return out
@@ -621,6 +646,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="serve Prometheus text on /metrics and the JSON status on /status at this port (0 = ephemeral)",
     )
     parser.add_argument("--wait-ready", action="store_true", help="block until warm before announcing")
+    parser.add_argument(
+        "--cache-dir",
+        default=None,
+        help="root the kernel build at host_keyed_cache_dir(DIR) (default: build/pbft_tpu_torch/ in the repo)",
+    )
     args = parser.parse_args(argv)
     shapes = [int(s) for s in args.warm_shapes.split(",") if s] if args.warm_shapes else None
     daemon = VerifyServiceDaemon(
@@ -637,6 +667,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         inflight=args.inflight,
         trace_path=args.trace,
         metrics_port=args.metrics_port,
+        cache_dir=args.cache_dir,
     )
     try:
         daemon.start(wait_ready=args.wait_ready)

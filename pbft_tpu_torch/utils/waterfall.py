@@ -1,5 +1,5 @@
-"""Per-request latency waterfalls: the port's copy of ``load_jsonl`` and
-``build_waterfall`` from ``pbft_tpu/utils/waterfall.py``. They join the
+"""Per-request latency waterfalls: the port's copy of
+``pbft_tpu/utils/waterfall.py``. They join the
 client's send, first-reply and quorum stamps with the replicas' trace events
 into per-request segments, with no change to the wire format:
 
@@ -11,13 +11,16 @@ into per-request segments, with no change to the wire format:
                --(reply)----------> client quorum (f+1 matching replies)
 
 All stamps are CLOCK_MONOTONIC, comparable across processes on one host.
-The bench harness (``bench/harness.py``) fills ``latency_segments_ms`` from
-it when a run has a trace directory.
+Consumers: ``pbft_tpu_torch.scripts.consensus_timeline --waterfall``
+(offline, from trace files) and the bench harness (``bench/harness.py``,
+which fills ``latency_segments_ms`` when a run has a trace directory) —
+one join implementation for both.
 """
 
 from __future__ import annotations
 
 import json
+import pathlib
 from typing import Dict, Iterable, List, Optional
 
 SEGMENTS = ("client_queue", "batch_wait", "prepared", "committed",
@@ -47,6 +50,23 @@ def load_jsonl(paths: Iterable) -> List[dict]:
                 if isinstance(e, dict):
                     events.append(e)
     return events
+
+
+def client_records_from_events(events: Iterable[dict]) -> List[dict]:
+    """Extract ``client_request`` events (net/client.py write_trace) into
+    the record shape build_waterfall takes."""
+    out = []
+    for e in events:
+        if e.get("ev") != "client_request":
+            continue
+        row = {k: e[k] for k in ("client", "req_ts", "send") if k in e}
+        if len(row) < 3:
+            continue
+        for k in ("first_reply", "quorum"):
+            if isinstance(e.get(k), (int, float)):
+                row[k] = e[k]
+        out.append(row)
+    return out
 
 
 def build_waterfall(
@@ -153,3 +173,37 @@ def build_waterfall(
         "e2e_ms": stats_ms(e2e),
         "segments_ms": {s: stats_ms(durs[s]) for s in SEGMENTS},
     }
+
+
+def render(wf: Dict) -> str:
+    """Human-readable waterfall table."""
+    lines = [
+        "per-request latency waterfall: %d requests joined "
+        "(%d client records, mean batch %.2f)"
+        % (wf["requests"], wf["clients"], wf["mean_batch"])
+    ]
+    lines.append(
+        f"  {'segment':<14}{'p50 ms':>10}{'p95 ms':>10}{'p99 ms':>10}"
+        f"{'samples':>10}"
+    )
+    for name in SEGMENTS + ("e2e",):
+        st = wf["e2e_ms"] if name == "e2e" else wf["segments_ms"][name]
+        lines.append(
+            f"  {name:<14}{st['p50']:>10.2f}{st['p95']:>10.2f}"
+            f"{st['p99']:>10.2f}{st['count']:>10}"
+        )
+    return "\n".join(lines)
+
+
+def from_trace_dir(paths) -> Dict:
+    """Build a waterfall straight from trace files/dirs (client_request
+    events mixed in with replica events — the harness writes both)."""
+    files = []
+    for arg in paths:
+        p = pathlib.Path(arg)
+        if p.is_dir():
+            files.extend(sorted(p.glob("*.jsonl")) + sorted(p.glob("*/*.jsonl")))
+        else:
+            files.append(p)
+    events = load_jsonl(files)
+    return build_waterfall(events, client_records_from_events(events))

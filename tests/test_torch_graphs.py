@@ -192,8 +192,9 @@ def test_engine_stats_keys_are_the_jax_engines_plus_the_ports():
 
     jax_stats = ShardedVerifyEngine(shapes=(16,), kernel=_standin).warm()
     stats = CudaVerifyEngine(shapes=(16,), device="cpu", kernel=_standin, devices=2, slots=3).warm()
-    assert set(stats) == set(jax_stats) | {"device", "shards", "build_s", "slots", "graph_pool_bytes",
-                                           "compile_s_by_shape", "graph_pool_bytes_by_shape"}
+    assert set(stats) == set(jax_stats) | {"device", "shards", "build_s", "build_compiled", "build_dir", "slots",
+                                           "graph_pool_bytes", "compile_s_by_shape", "graph_pool_bytes_by_shape"}
+    assert stats["build_compiled"] == [] and stats["build_dir"] is None  # no kernel build off the card
     assert list(stats["compile_s_by_shape"]) == stats["shapes"] == [16]
     assert stats["compiled"] == 6  # 1 shape x 2 shards x 3 slots
     assert stats["aot_loaded"] == 0 and stats["graph_pool_bytes"] == 0  # no card

@@ -38,6 +38,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "consensus/wal.py", "consensus/replica.py", "consensus/simulation.py", "consensus/invariants.py",
         "consensus/faults.py", "net/server.py", "net/secure.py", "net/discovery.py", "net/gateway.py",
         "utils/flight.py", "utils/__init__.py", "net/__init__.py",
+        "utils/cache.py", "analysis/__init__.py", "analysis/health.py", "analysis/constants.py",
+        "analysis/async_blocking.py", "analysis/metrics_lint.py", "analysis/sockets.py",
+        "scripts/__init__.py", "scripts/pbft_lint.py", "scripts/check_trace_schema.py",
+        "scripts/verify_status.py", "scripts/flight_dump.py", "scripts/trace_report.py",
+        "scripts/consensus_timeline.py", "scripts/pbft_top.py", "scripts/chaos_bench.py",
+        "scripts/endurance_soak.py",
     ):
         assert os.path.join(_REPO, "pbft_tpu_torch", name) in files, name
     bad = []
