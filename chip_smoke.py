@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # one card, no arguments
 
 Phases, each one JSON line; any failure ends the script with a nonzero exit
-and no result line:
+and no result line, its phase and check printed on stdout (a JSON line with
+"ok": false) and on stderr (the traceback and one chip_smoke line):
 
 1. env      the card (nvidia-smi name and power limit), torch/CUDA versions,
             the kernel build from the sources in this checkout (nvcc for
@@ -126,7 +127,7 @@ and no result line:
             verdict, the backup crashes and heals under load and catches up,
             stutter-primary changes view; (4) pbft_top
             --gate --once over a loaded cluster exits 0; (5) endurance_soak
-            for 60 s (its CI size is 180 s) with the WAL on: gate green,
+            for 45 s (its CI size is 180 s) with the WAL on: gate green,
             req/s, reply p50/p99, RSS, fd and WAL slopes; (6) trace_report,
             consensus_timeline and flight_dump over the crash-backup arm's
             traces and black boxes, verify_status on the daemon (ready, the
@@ -135,7 +136,29 @@ and no result line:
             metrics line), no host fallback after ready; each kernel launched
             once per daemon window per shard (the daemon reports its counts
             in its JSON status).
-11. parallel the sixth main path, pbft_tpu_torch.parallel, on B = 4,096
+11. evidence the evidence and sweep tools (pbft_tpu_torch.scripts) on the
+            card: (1) gpu_evidence --steps kernel,decomp,profile, a process
+            of its own: verify_many's rate at 4,096 with the verdicts against
+            the oracle and the host time of one cudaGraphLaunch; the
+            component rates (field multiply, carry, SHA-512 by chained CUDA
+            graphs) and the device ms of each stage of a replayed 4,096
+            window (SHA-512, mod L, decompress, ladder, compress, compare),
+            each captured on the previous stage's outputs, equal to the eager
+            path's, summing to within 15% of the whole window's device busy
+            ms; a profiled
+            window; every key positive. (2) chaos_soak --verifier cuda at
+            n = 4, 2 seeds x 120 steps in the sig and mac modes (the
+            script's soak is 25 seeds x 400 steps), then --validate: every
+            seed passes S1-S3 and L1, the validator trips. (3) scale_curve
+            --n 4,7 --verifier daemon, 4 clients x 10 requests: both rows,
+            every request completed, the daemon's items equal to the
+            replicas' checks. (4) window_sweep on the daemon's cuda backend,
+            pipelines 8, 32 x flushes 0, 2,000 us at 64 requests, each row
+            with its launch_cost_model projections from (1)'s rate and graph
+            launch. (5) bench_compare on (3)'s rows exits 0 against them and
+            1 against a copy 20% slower. Each kernel's launches equal the
+            cuda_verifier's windows, or the daemon's windows, per shard.
+12. parallel the sixth main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -156,7 +179,7 @@ and no result line:
             eager path, of round_step, and of verify_many on the same window;
             then one window of verify_many, (a) and (b) under torch.profiler
             (aten events, device busy ms, CUDA runtime calls).
-12. timing  CUDA-event times of each kernel's wrapper and of its plain
+13. timing  CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), a
             256-row verify_many window of 3 items (the simulation's shape),
@@ -170,13 +193,17 @@ first capture; config 0's in-process primary of the asyncio phase, after its
 warmup and a capture of shapes 16, 64 and 256 in this process, against that
 replica's windows; each asyncio daemon run and the mixed cluster, after the
 daemon's warm; the health phase's daemon, read from its status after its
-warm and at the phase's end; each parallel path, in each of its processes)
+warm and at the phase's end; the evidence phase's chaos soak and window
+sweep, and each scale_curve point, read from its daemon's status; each
+parallel path, in each of its processes)
 and read just after it: every kernel must have launched exactly
 once per window per shard that the path formed. A replay counts the
 launches its graph recorded at capture; every path's shapes are captured
 (and their eager priming runs launched) before its count starts.
 
-The line before the last is the kernel table ({"kernels": [...]}); the last
+The line before the last is the kernel table ({"kernels": [...]}, each row
+with the stage of a window that runs it and that stage's device ms from the
+evidence phase); the last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -1299,7 +1326,7 @@ HEALTH_CHAOS = dict(n=4, clients=8, requests_each=30, window=8, batch=32, batch_
 # per client (~12 s).
 HEALTH_CRASH_REQUESTS = 320
 HEALTH_TOP_WINDOW_S = 8  # pbft_top --once sampling window, under load
-HEALTH_ENDURANCE_S = 60  # endurance_soak's CI size is 180 s
+HEALTH_ENDURANCE_S = 45  # endurance_soak's CI size is 180 s; cut so that the smoke fits its time
 
 
 def _port_env() -> dict:
@@ -1523,6 +1550,165 @@ def phase_health(K, VS, card: str, backend: str = "cuda") -> dict:
         finally:
             stop_process(proc)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The evidence and sweep tools (pbft_tpu_torch.scripts), on the card.
+# ---------------------------------------------------------------------------
+
+EVIDENCE_STEPS = "kernel,decomp,profile"  # the protocol phase runs configs 0-1
+EVIDENCE_STAGE_TOLERANCE = 0.15  # the stages' device busy ms against the whole window's
+# chaos_soak at n = 4: seeds x modes of this many steps (the script's soak
+# is 25 seeds x 400 steps x n = 4, 7 x both modes).
+EVIDENCE_CHAOS = dict(seeds=2, steps=120, modes=("sig", "mac"))
+# scale_curve at n = 4 and 7 through one gateway, few requests per client
+# (the script's default is 8 clients x 50 at n = 4, 7, 16, 31).
+EVIDENCE_SCALE = dict(ns=(4, 7), clients=4, requests=10)
+# window_sweep's grid (the script's is pipelines 8-64 x flushes 0-2,000 us
+# at 192 requests).
+EVIDENCE_SWEEP = dict(pipelines=(8, 32), flushes=(0, 2000), requests=64)
+
+
+def _positive(doc: dict, keys) -> bool:
+    return all(isinstance(doc.get(k), (int, float)) and doc[k] > 0 for k in keys)
+
+
+def phase_evidence(K, VS, card: str, backend: str = "cuda") -> tuple:
+    """The evidence and sweep tools on the card. (1) gpu_evidence --steps
+    kernel,decomp,profile, a process of its own (each step in one more):
+    every key present and positive, verdicts equal to the oracle, the
+    stages' busy ms within 15% of the whole window's device busy ms, each stage's
+    outputs equal to the eager path's. (2) chaos_soak --verifier cuda at
+    n = 4 (EVIDENCE_CHAOS seeds and modes), then its validator: every seed
+    passes S1-S3 and L1, the validator trips, each kernel launched once per
+    cuda_verifier window. (3) scale_curve --n 4,7 --verifier daemon: both
+    rows, every request completed, the daemon's items equal to the
+    replicas' checks, launches = daemon windows. (4) window_sweep on the
+    daemon's cuda backend over EVIDENCE_SWEEP, each row with its
+    launch_cost_model projections at 100 us and at step 1's graph launch,
+    from step 1's rate; launches = daemon windows. (5) bench_compare on
+    step 3's rows: against themselves exit 0, against a copy with
+    requests_per_sec cut by 20% exit 1. ``backend="native"`` rehearses the
+    phase without a card (steps 1-2 then run on the CPU's arms and launch
+    counts are not checked). Returns (launches by path, each kernel's
+    stage and its device ms from step 1)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pbft_tpu_torch.net.verify_service import CudaVerifyEngine
+    from pbft_tpu_torch.scripts import bench_compare, chaos_soak, scale_curve, window_sweep
+
+    phase_t0 = time.perf_counter()
+    on_card = backend == "cuda"
+    shards = torch.cuda.device_count() if on_card else 1
+    launches, stage_ms = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-evidence-") as tmp:
+        # (1) gpu_evidence
+        t0 = time.perf_counter()
+        if on_card:
+            out_dir = os.path.join(tmp, "evidence")
+            ev = run_module("pbft_tpu_torch.scripts.gpu_evidence", "--steps", EVIDENCE_STEPS, "--out-dir", out_dir,
+                            "--timeout", 300, timeout=900)
+            docs = {}
+            for step in EVIDENCE_STEPS.split(","):
+                path = os.path.join(out_dir, f"{step}.json")
+                docs[step] = json.loads(Path(path).read_text()) if os.path.exists(path) else {}
+                emit("evidence", step=f"gpu_evidence_{step}", rc=ev.returncode, row=docs[step], card=card)
+            emit("evidence", step="gpu_evidence_log", lines=[ln for ln in ev.stderr.splitlines()
+                                                             if ln.startswith("[gpu_evidence")])
+            check(ev.returncode == 0, f"gpu_evidence exit {ev.returncode}: {ev.stdout[-2000:]}{ev.stderr[-3000:]}")
+            kernel, decomp, prof = docs["kernel"], docs["decomp"], docs["profile"]
+            check(_positive(kernel, ("value", "graph_launch_us", "window_ms", "capture_s"))
+                  and kernel["verdicts_equal_oracle"] is True and kernel["invalid_rows"] == 1, f"kernel: {kernel}")
+            check(_positive(decomp, ("field_mul_per_sec", "carry_per_sec", "carry_share_of_mul",
+                                     "sha512_32B_per_sec", "stages_ms", "stages_busy_ms"))
+                  and decomp["verdicts_equal_oracle"] is True
+                  and _positive(decomp["window"], ("ms", "busy_ms", "activities")), f"decomp: {decomp}")
+            stages = decomp["stages"]
+            check([st["stage"] for st in stages] == ["sha512", "mod_l", "decompress", "ladder", "compress", "compare"]
+                  and all(_positive(st, ("ms", "busy_ms", "activities")) and st["outputs_equal_eager"] is True
+                          for st in stages), f"decomp stages: {stages}")
+            check(abs(decomp["stages_over_window"] - 1) <= EVIDENCE_STAGE_TOLERANCE,
+                  f"the stages' {decomp['stages_busy_ms']} busy ms against the window's "
+                  f"{decomp['window']['busy_ms']} busy ms")
+            check(_positive(prof, ("wall_ms", "device_busy_ms", "kernels_per_window")), f"profile: {prof}")
+            stage_ms = {st["kernel"]: {"stage": st["stage"], "stage_ms": st["ms"], "stage_busy_ms": st["busy_ms"]}
+                        for st in stages if st["kernel"]}
+        else:
+            kernel = {"value": 100_000.0, "graph_launch_us": 1000.0}  # the rehearsal's stand-in record
+        emit("evidence", step="gpu_evidence", seconds=time.perf_counter() - t0, card=card)
+
+        # (2) chaos_soak, every window on the card, then its validator
+        t0 = time.perf_counter()
+        verifier = "cuda" if on_card else "native"
+        K.reset_launches()
+        runs = [chaos_soak.run_one(seed, 4, EVIDENCE_CHAOS["steps"], mode=mode, verifier=verifier)
+                for seed in range(EVIDENCE_CHAOS["seeds"]) for mode in EVIDENCE_CHAOS["modes"]]
+        valid = chaos_soak.validate_checker(verifier=verifier)
+        got = dict(K.LAUNCHES)
+        windows = sum(r["windows"] for r in runs) + valid["windows"]
+        for r in runs:
+            emit("evidence", step="chaos_soak", **{k: v for k, v in r.items() if k != "schedule"},
+                 schedule=r["schedule"].describe(), card=card)
+        emit("evidence", step="chaos_soak_validate", result=valid, seconds=time.perf_counter() - t0, card=card)
+        check(all(r["ok"] for r in runs), f"chaos_soak: {[r.get('violation') for r in runs if not r['ok']]}")
+        check(valid["tripped"], "chaos_soak --validate: f+1 equivocators ran clean")
+        if on_card:
+            launches["evidence_chaos_soak"] = check_launches(K, "evidence_chaos_soak", windows, shards, got=got)
+
+        # (3) scale_curve on the daemon
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "scale.jsonl")
+        rc = scale_curve.main(["--n", ",".join(map(str, EVIDENCE_SCALE["ns"])), "--clients", str(EVIDENCE_SCALE["clients"]),
+                               "--requests", str(EVIDENCE_SCALE["requests"]), "--verifier", "daemon",
+                               "--service-backend", backend, "--out", out])
+        rows = [json.loads(line) for line in Path(out).read_text().splitlines()] if os.path.exists(out) else []
+        emit("evidence", step="scale_curve", rc=rc, rows=rows, seconds=time.perf_counter() - t0, card=card)
+        want_requests = EVIDENCE_SCALE["clients"] * EVIDENCE_SCALE["requests"]
+        check(rc == 0 and [r["replicas"] for r in rows] == list(EVIDENCE_SCALE["ns"])
+              and all(r["completed_pct"] == 100.0 and r["requests"] == want_requests for r in rows),
+              f"scale_curve exit {rc}: {rows}")
+        for r in rows:
+            check_accounting(f"scale_curve n={r['replicas']}", r["verify_accounting"])
+        if on_card:
+            accs = [r["verify_accounting"] for r in rows]
+            launches["evidence_scale_curve"] = check_launches(
+                K, "evidence_scale_curve", sum(a["service_windows"] for a in accs), accs[0]["service_devices"],
+                got={k: sum(a["kernel_launches"][k] for a in accs) for k in K.KERNELS})
+
+        # (4) window_sweep on the card's daemon, projected from step 1
+        t0 = time.perf_counter()
+        engine = None
+        if on_card:
+            engine = CudaVerifyEngine(slots=1)
+            engine.warm()
+        K.reset_launches()
+        sweep = window_sweep.sweep(EVIDENCE_SWEEP["pipelines"], EVIDENCE_SWEEP["flushes"],
+                                   EVIDENCE_SWEEP["requests"], kernel, backend, engine)
+        got = dict(K.LAUNCHES)
+        emit("evidence", step="window_sweep", rows=sweep, seconds=time.perf_counter() - t0, card=card)
+        want_costs = {"launch_100us", f"launch_{int(kernel['graph_launch_us'])}us"}
+        check(len(sweep) == len(EVIDENCE_SWEEP["pipelines"]) * len(EVIDENCE_SWEEP["flushes"])
+              and all(r["items_per_launch"] > 0 and set(r["projected"]) == want_costs
+                      and r["service_items"] == r["replica_sig_checks"] and r["service_fallback_items"] == 0
+                      for r in sweep), f"window_sweep: {sweep}")
+        if on_card:
+            launches["evidence_window_sweep"] = check_launches(
+                K, "evidence_window_sweep", sum(r["launches"] for r in sweep), engine.device_count, got=got)
+
+        # (5) bench_compare on step 3's rows
+        cut = os.path.join(tmp, "scale-cut.jsonl")
+        with open(cut, "w") as fh:
+            for r in rows:
+                fh.write(json.dumps(dict(r, requests_per_sec=r["requests_per_sec"] * 0.8)) + "\n")
+        same = bench_compare.main([out, out, "--group-by", "replicas"])
+        slower = bench_compare.main([out, cut, "--group-by", "replicas"])
+        emit("evidence", step="bench_compare", same_rc=same, cut_20pct_rc=slower,
+             phase_s=time.perf_counter() - phase_t0, card=card)
+        check(same == 0 and slower == 1, f"bench_compare: {same} against itself, {slower} against a 20% cut")
+    return launches, stage_ms
 
 
 def torch_card_name(card: str) -> str:
@@ -2057,14 +2243,21 @@ def main() -> int:
     card = smi("name,power.limit")
     print(card, flush=True)
     rng = np.random.default_rng(SEED)
-    phase = "env"
+    phase, t_phase, walls = "env", time.perf_counter(), {}
+
+    def enter(name: str) -> None:
+        """The next phase: the one that ends gets its wall seconds."""
+        nonlocal phase, t_phase
+        walls[phase] = round(time.perf_counter() - t_phase, 1)
+        phase, t_phase = name, time.perf_counter()
+
     try:
         env = phase_env(torch, K, card)
-        phase = "kernels"
+        enter("kernels")
         shapes = set(batch._PAD_LADDER) | {batch.pad_size(n) for n in VERIFY_SIZES} | {B, SIM_BATCH_PAD}
         check(shapes <= set(KERNEL_SIZES), f"window shapes {sorted(shapes - set(KERNEL_SIZES))} not in KERNEL_SIZES")
         errs = phase_kernels(torch, F, E, K, ref, rng, card)
-        phase = "verify"
+        enter("verify")
         t0 = time.perf_counter()
         pool, want = make_pool(ref, rng)
         emit("verify", pool_items=len(pool), pool_rejected=want.count(False),
@@ -2073,9 +2266,9 @@ def main() -> int:
         K.reset_launches()
         windows = phase_verify(batch, pool, want, rng, card)
         launches = {"verify_many": check_launches(K, "verify_many", windows)}
-        phase = "graphs"
+        enter("graphs")
         phase_graphs(torch, E, K, VS, batch, pool, want, rng, card)
-        phase = "service"
+        enter("service")
         services = {}
         for path, kwargs in (("service_default", {}),
                              ("service_window_4096", {"flush_items": 4096, "flush_us": 100_000})):
@@ -2085,26 +2278,35 @@ def main() -> int:
         window_run = services["service_window_4096"]
         check(window_run["launches"] < window_run["requests"], "no coalescing in the 4,096-item window")
         launches["engine_chunked"] = run_chunked(VS, K, pool, want, card)
-        phase = "surface"
+        enter("surface")
         launches["surface_service_verifier"] = phase_surface(VS, K, pool, want, card)
-        phase = "protocol"
+        enter("protocol")
         launches.update(phase_protocol(K, VS, card))
-        phase = "simulation"
+        enter("simulation")
         launches.update(phase_simulation(K, card))
-        phase = "asyncio"
+        enter("asyncio")
         launches.update(phase_asyncio(K, VS, card))
-        phase = "health"
+        enter("health")
         launches.update(phase_health(K, VS, card))
-        phase = "parallel"
+        enter("evidence")
+        evidence_launches, stage_ms = phase_evidence(K, VS, card)
+        launches.update(evidence_launches)
+        enter("parallel")
         launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
-        phase = "timing"
+        enter("timing")
         times = phase_timing(torch, F, E, K, batch, pool, rng, card, env)
         for path, run in services.items():
             emit("timing", path=path, verifies_per_s=run["verifies_per_s"],
                  launches=run["launches"], requests=run["requests"], card=card)
+        enter("done")
     except Exception as e:  # noqa: BLE001 - every phase failure ends the run
-        emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
+        emit(phase, ok=False, error=f"{type(e).__name__}: {e}", phase_wall_s=walls)
+        # The failure also goes to stderr, whose end is what a caller that
+        # keeps only the tail of that stream sees.
+        traceback.print_exc()
+        print(f"chip_smoke: phase {phase} failed: {type(e).__name__}: {str(e)[:4000]}", file=sys.stderr, flush=True)
         return 1
+    emit("smoke", phase_wall_s=walls, total_s=round(sum(walls.values()), 1))
     table = []
     for name in K.KERNELS:
         source, replaces = SOURCES[name]
@@ -2115,7 +2317,7 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": float(errs[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": None, **stage_ms[name],
             "registers": env["kernels"][name].get("registers"),
             "spill_store_bytes": env["kernels"][name].get("spill_store_bytes"),
         })

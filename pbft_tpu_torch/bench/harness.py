@@ -504,11 +504,15 @@ def start_daemon(
     flush_items: int = 0,
     service_inflight: int = 1,
     trace_dir: Optional[str] = None,
+    engine=None,
 ) -> VerifyServiceDaemon:
     """The verify service of a ``native-cuda`` run, started and warm: with
     backend ``cuda`` every window shape is captured on the card before this
     returns (it raises without a card). Metrics are on; with ``trace_dir``
-    its per-window trace goes to ``<trace_dir>-service/service.jsonl``."""
+    its per-window trace goes to ``<trace_dir>-service/service.jsonl``.
+    ``engine`` is a ``CudaVerifyEngine`` with ``service_inflight`` slots to
+    serve, shared by daemons that run one after another (warmed by the
+    first that starts)."""
     trace_path = None
     if trace_dir:
         service_dir = f"{trace_dir.rstrip('/')}-service"
@@ -523,6 +527,7 @@ def start_daemon(
         inflight=service_inflight,
         trace_path=trace_path,
         metrics_port=0,
+        engine=engine,
     )
     try:
         return daemon.start(wait_ready=True)

@@ -10,7 +10,19 @@ together, by design: see ``core/ed25519.cc``). It is the host's verifier:
 the daemon's warm-time fallback and the replica client's safety net
 (``host_batch_verify``), and the service's ``native`` backend. The core's
 single-signature ``sign`` and ``verify`` are the replicas' host signer and
-inline verifier (``consensus/replica.py``).
+inline verifier (``consensus/replica.py``). The rest of the C ABI is bound
+too, with the reference's signatures: the hashes (``blake2b``,
+``blake2b_keyed``, ``sha512``), the secure channel's primitives
+(``dh_public``, ``dh_shared``, ``aead_seal``, ``aead_open``, ``mac_tag``),
+the binary wire codec (``message_to_binary``, ``message_from_binary``,
+``signable_from_payload``, ``message_to_binary_mac``, ``mac_frame_lane``),
+the native flight recorder (``flight_*``) and the verifier's test hooks
+(``force_entropy_exhaustion``, ``pubkey_cache_*``): the surface the
+cross-runtime parity tests hold the Python runtime against. Where the C
+side reads a fixed-size key or secret, a buffer of another length raises
+``ValueError`` (the reference passes it through); a failed open, a shared
+secret of a small-order point or an undecodable frame is ``None``, as in
+the reference.
 
 There is one build of ``core/`` in a checkout, ``build-core/``, shared with
 the JAX package. When its artifacts are missing this module builds them all
@@ -156,6 +168,33 @@ def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pbft_ed25519_sign.restype = None
     so.pbft_ed25519_verify.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p]
     so.pbft_ed25519_verify.restype = ctypes.c_int
+    buf, size, i64 = ctypes.c_char_p, ctypes.c_size_t, ctypes.c_longlong
+    for name, args, res in (
+        ("pbft_blake2b", [buf, size, buf, size], None),
+        ("pbft_blake2b_keyed", [buf, size, buf, size, buf, size], None),
+        ("pbft_sha512", [buf, buf, size], None),
+        ("pbft_dh_public", [buf, buf], None),
+        ("pbft_dh_shared", [buf, buf, buf], ctypes.c_int),
+        ("pbft_aead_seal", [buf, ctypes.c_uint64, buf, size, buf], None),
+        ("pbft_aead_open", [buf, ctypes.c_uint64, buf, size, buf], ctypes.c_long),
+        ("pbft_test_force_entropy_exhaustion", [ctypes.c_int], None),
+        ("pbft_pubkey_cache_clear", [], None),
+        ("pbft_test_pubkey_cache_disable", [ctypes.c_int], None),
+        ("pbft_flight_configure", [size], None),
+        ("pbft_flight_record", [ctypes.c_int, i64, i64, ctypes.c_int], None),
+        ("pbft_flight_total", [], ctypes.c_ulonglong),
+        ("pbft_flight_dump", [buf], ctypes.c_long),
+        ("pbft_flight_reset", [], None),
+        ("pbft_message_to_binary", [buf, size, buf, size], size),
+        ("pbft_message_from_binary", [buf, size, buf, size, buf], size),
+        ("pbft_signable_from_payload", [buf, size, buf], ctypes.c_int),
+        ("pbft_message_to_binary_mac", [buf, size, buf, size, buf, size], size),
+        ("pbft_mac_frame_lane", [buf, size, i64, buf], ctypes.c_int),
+        ("pbft_mac_tag", [buf, buf, buf], None),
+    ):
+        fn = getattr(so, name)
+        fn.argtypes = args
+        fn.restype = res
     return so
 
 
@@ -319,3 +358,179 @@ def host_batch_verify(items: Sequence[Tuple[bytes, bytes, bytes]]) -> List[bool]
     from .crypto import ref
 
     return [ref.verify(p, m, s) for p, m, s in items]
+
+
+def _check_len(what: str, data: bytes, n: int) -> None:
+    if len(data) != n:
+        raise ValueError(f"{what} is {n} bytes, not {len(data)}")
+
+
+def blake2b(data: bytes, digest_size: int = 32) -> bytes:
+    """BLAKE2b of ``data`` (``hashlib.blake2b``'s bytes), 1-64 bytes out."""
+    if not 1 <= digest_size <= 64:
+        raise ValueError(f"a BLAKE2b digest is 1-64 bytes, not {digest_size}")
+    out = ctypes.create_string_buffer(digest_size)
+    lib().pbft_blake2b(out, digest_size, data, len(data))
+    return out.raw
+
+
+def blake2b_keyed(key: bytes, data: bytes, digest_size: int = 32) -> bytes:
+    """Keyed BLAKE2b (a key of up to 64 bytes), as ``hashlib.blake2b(key=)``."""
+    if not 1 <= digest_size <= 64 or len(key) > 64:
+        raise ValueError(f"BLAKE2b takes a key of up to 64 bytes and 1-64 bytes out, not {len(key)}, {digest_size}")
+    out = ctypes.create_string_buffer(digest_size)
+    lib().pbft_blake2b_keyed(out, digest_size, key, len(key), data, len(data))
+    return out.raw
+
+
+def sha512(data: bytes) -> bytes:
+    """SHA-512 of ``data`` (``hashlib.sha512``'s bytes)."""
+    out = ctypes.create_string_buffer(64)
+    lib().pbft_sha512(out, data, len(data))
+    return out.raw
+
+
+def dh_public(secret: bytes) -> bytes:
+    """The secure channel's Diffie-Hellman public value (on the Ed25519
+    curve) of a 32-byte secret."""
+    _check_len("a DH secret", secret, 32)
+    out = ctypes.create_string_buffer(32)
+    lib().pbft_dh_public(out, secret)
+    return out.raw
+
+
+def dh_shared(secret: bytes, peer_pub: bytes) -> Optional[bytes]:
+    """The shared secret with a peer's public value; None when the peer's
+    value is rejected (not a point, or of small order)."""
+    _check_len("a DH secret", secret, 32)
+    _check_len("a DH public value", peer_pub, 32)
+    out = ctypes.create_string_buffer(32)
+    ok = lib().pbft_dh_shared(out, secret, peer_pub)
+    return out.raw if ok else None
+
+
+def aead_seal(key: bytes, ctr: int, plaintext: bytes) -> bytes:
+    """The secure channel's frame seal under a 64-byte key and counter:
+    the ciphertext and a 16-byte tag."""
+    _check_len("an AEAD key", key, 64)
+    out = ctypes.create_string_buffer(len(plaintext) + 16)
+    lib().pbft_aead_seal(key, ctr, plaintext, len(plaintext), out)
+    return out.raw
+
+
+def aead_open(key: bytes, ctr: int, sealed: bytes) -> Optional[bytes]:
+    """The plaintext of a sealed frame; None when its tag does not check."""
+    _check_len("an AEAD key", key, 64)
+    out = ctypes.create_string_buffer(max(len(sealed), 1))
+    n = lib().pbft_aead_open(key, ctr, sealed, len(sealed), out)
+    return out.raw[:n] if n >= 0 else None
+
+
+def force_entropy_exhaustion(on: bool) -> None:
+    """TEST hook: simulate entropy exhaustion, so that the pool's random
+    linear combination is off and its windows verify item by item."""
+    lib().pbft_test_force_entropy_exhaustion(1 if on else 0)
+
+
+def pubkey_cache_clear() -> None:
+    """Drop every entry of the core's decompressed-key cache."""
+    lib().pbft_pubkey_cache_clear()
+
+
+def pubkey_cache_disable(on: bool) -> None:
+    """TEST hook: take the cold (uncached) key-decompression path, so that
+    a test can compare warm and cold verdicts."""
+    lib().pbft_test_pubkey_cache_disable(1 if on else 0)
+
+
+def flight_configure(capacity: int) -> None:
+    """(Re)size and enable the core's black-box flight recorder ring
+    (``core/flight.cc``); capacity 0 disables it."""
+    lib().pbft_flight_configure(capacity)
+
+
+def flight_record(ev: int, view: int = 0, seq: int = 0, peer: int = -1) -> None:
+    """Record one event (an id of ``utils.trace_schema.FLIGHT_EVENTS``) in
+    the core's ring; one branch while the recorder is disabled."""
+    lib().pbft_flight_record(ev, view, seq, peer)
+
+
+def flight_total() -> int:
+    """Records the core's ring ever accepted (not clamped to its capacity)."""
+    return int(lib().pbft_flight_total())
+
+
+def flight_dump(path: str) -> int:
+    """Write the core's ring as a binary dump; returns the record count, or
+    -1 on failure. Decode with ``utils.flight.decode_file`` or
+    ``python -m pbft_tpu_torch.scripts.flight_dump``."""
+    return int(lib().pbft_flight_dump(str(path).encode()))
+
+
+def flight_reset() -> None:
+    """Empty the core's ring."""
+    lib().pbft_flight_reset()
+
+
+def message_to_binary(payload: bytes) -> Optional[bytes]:
+    """A JSON message payload parsed by the core and encoded with its
+    binary-v2 codec; None when the type has no binary form. Byte for byte
+    ``consensus.messages.to_binary`` of the same message."""
+    out = ctypes.create_string_buffer(len(payload) + 256)
+    n = lib().pbft_message_to_binary(payload, len(payload), out, len(out))
+    if n == 0 or n > len(out):
+        return None
+    return out.raw[:n]
+
+
+def message_from_binary(payload: bytes) -> Optional[Tuple[bytes, bytes]]:
+    """A binary-v2 payload decoded by the core: (canonical JSON bytes,
+    signable digest), or None when it does not decode."""
+    out = ctypes.create_string_buffer(4 * len(payload) + 1024)
+    digest = ctypes.create_string_buffer(32)
+    n = lib().pbft_message_from_binary(payload, len(payload), out, len(out), digest)
+    if n == 0 or n > len(out):
+        return None
+    return out.raw[:n], digest.raw
+
+
+def signable_from_payload(payload: bytes) -> Optional[bytes]:
+    """The core's receive-side signable digest of a framed payload (JSON
+    signature splice or binary template, else the generic path); None when
+    the payload does not parse."""
+    digest = ctypes.create_string_buffer(32)
+    if not lib().pbft_signable_from_payload(payload, len(payload), digest):
+        return None
+    return digest.raw
+
+
+def message_to_binary_mac(payload: bytes, lanes) -> Optional[bytes]:
+    """A JSON message payload as the core's MAC-vector frame; ``lanes`` is
+    a sequence of (replica id, 16-byte tag). None when the type has no MAC
+    form."""
+    for _, tag in lanes:
+        _check_len("a MAC lane's tag", bytes(tag), 16)
+    blob = b"".join(rid.to_bytes(1, "big") + bytes(tag) for rid, tag in lanes)
+    out = ctypes.create_string_buffer(len(payload) + len(blob) + 256)
+    n = lib().pbft_message_to_binary_mac(payload, len(payload), blob, len(lanes), out, len(out))
+    if n == 0 or n > len(out):
+        return None
+    return out.raw[:n]
+
+
+def mac_frame_lane(payload: bytes, rid: int) -> Optional[bytes]:
+    """Replica ``rid``'s 16-byte tag in a MAC frame, or None when absent."""
+    tag = ctypes.create_string_buffer(16)
+    if not lib().pbft_mac_frame_lane(payload, len(payload), rid, tag):
+        return None
+    return tag.raw
+
+
+def mac_tag(key: bytes, signable: bytes) -> bytes:
+    """The core's authenticator-lane tag of a 32-byte signable under a
+    32-byte link key (``net/secure.py`` ``mac_tag``)."""
+    _check_len("a MAC key", key, 32)
+    _check_len("a signable digest", signable, 32)
+    tag = ctypes.create_string_buffer(16)
+    lib().pbft_mac_tag(key, signable, tag)
+    return tag.raw

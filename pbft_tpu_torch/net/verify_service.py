@@ -401,7 +401,9 @@ class VerifyServiceDaemon:
 
     def _warm(self) -> None:
         try:
-            stats = self.engine.warm()
+            # An engine that is already warm (one shared by daemons that
+            # run one after another) serves as it is.
+            stats = self.engine.stats if self.engine.warmed_sizes else self.engine.warm()
         except Exception as e:  # noqa: BLE001 - reported, never hidden
             with self._state_lock:
                 self.warm_error = e

@@ -1,5 +1,6 @@
 """The port's import rule: nothing in pbft_tpu_torch/ or chip_smoke.py
-imports jax or the JAX package pbft_tpu (pbft_tpu_torch is fine), checked
+imports jax, the JAX package pbft_tpu (pbft_tpu_torch is fine) or the
+reference's scripts/ (the port has its own copies), checked
 on the AST of every file; and device selection never falls back to the CPU
 on its own."""
 
@@ -23,9 +24,14 @@ def _port_files():
     return sorted(files)
 
 
+# The reference's operator scripts (scripts/*.py), importable as top-level
+# modules once scripts/ is on sys.path, as the reference's scripts do.
+_ROOT_SCRIPTS = {n[:-3] for n in os.listdir(os.path.join(_REPO, "scripts")) if n.endswith(".py")}
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "pbft_tpu")
+    return top in ("jax", "jaxlib", "pbft_tpu", "scripts") or top in _ROOT_SCRIPTS
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -43,7 +49,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "scripts/__init__.py", "scripts/pbft_lint.py", "scripts/check_trace_schema.py",
         "scripts/verify_status.py", "scripts/flight_dump.py", "scripts/trace_report.py",
         "scripts/consensus_timeline.py", "scripts/pbft_top.py", "scripts/chaos_bench.py",
-        "scripts/endurance_soak.py",
+        "scripts/endurance_soak.py", "scripts/bench_compare.py", "scripts/launch_cost_model.py",
+        "scripts/window_sweep.py", "scripts/scale_curve.py", "scripts/chaos_soak.py", "scripts/gpu_evidence.py",
     ):
         assert os.path.join(_REPO, "pbft_tpu_torch", name) in files, name
     bad = []
