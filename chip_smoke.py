@@ -43,9 +43,13 @@ and no result line, its phase and check printed on stdout (a JSON line with
             with the daemon's defaults (no accumulation window, two launches
             in flight), then with a 4,096-item accumulation window
             (flush_items), which must merge requests. Verdicts correct,
-            nothing served by the fallback; each then timed in turns against
-            a service with the same knobs whose backend runs the eager path;
-            then one 5,000-item engine call across the 4,096 chunk boundary.
+            nothing served by the fallback; each then timed against a
+            service with the same knobs whose backend runs the eager path
+            (one turn each, 2 requests a client); then one 5,000-item engine call across the 4,096
+            chunk boundary. The two daemons share one engine of two slots
+            (warmed by the first), as the parallel phase's daemon does; the
+            chunked call warms a one-slot engine that the protocol, asyncio
+            and evidence phases' daemons share.
 6. surface  the service's operator surface, at the headline window
             (flush_items=4096, flush_us=100000, the daemon's 5 shapes and
             inflight=2, metrics on): (a) the native verify pool (C++ core,
@@ -65,10 +69,11 @@ and no result line, its phase and check printed on stdout (a JSON line with
             pbftd replicas, their clients and pipelines, config 4's
             Byzantine signer) at full width through the port's harness, on
             the native arm (pbftd's own C++ verify pools) and the native-cuda
-            arm (every replica -> one daemon on the card, warmed before the
-            config's first run and shared by its runs), in turns (configs 1
-            and 2 two turns per arm), each at the harness's own depth
-            (requests). Every row printed with the card.
+            arm (every replica -> one daemon on the card, on the shared
+            one-slot engine), in turns, one turn per arm, each at the
+            harness's own depth (requests) but configs 0, 2, 3 and 4 at 25,
+            48, 48 and 48 (cut from 100, 100, 96 and 96). Every row printed
+            with the card.
             Every request commits with f + 1 matching validly signed
             replies; on the card's arm nothing is verified on the host (no
             fallback item after the warm, no verify deadline fired in the
@@ -78,7 +83,8 @@ and no result line, its phase and check printed on stdout (a JSON line with
             windows x shards per config.
 8. simulation the fourth main path, the Python replica cores in memory:
             BASELINE's configs 0-4 at full width and the harness's depth
-            through the port's harness (run_sim_config), on the cpu arm (the
+            (but configs 1-3 at 25, 50 and 25 requests, cut from 200, 100
+            and 50) through the port's harness (run_sim_config), on the cpu arm (the
             native pool) and the cuda arm (each step's items in windows of 256
             rows on the card, the window captured before the timed region),
             in turns, an invariant checker on every run; then one seeded fault
@@ -87,7 +93,7 @@ and no result line, its phase and check printed on stdout (a JSON line with
             commits; the arms end alike replica for replica (view,
             executed_upto, state digest, counters) with the same verifier
             calls, windows, items and rejections (config 4's Byzantine
-            signatures rejected on the card), at the JAX cpu arm's counts; no
+            signatures rejected on the card), at the cpu arm's counts; no
             view change; on the cuda arm nothing verified on the host (in the
             fault run only view-change evidence, inline); launches = windows
             (+ the run's one replayed capture call).
@@ -98,7 +104,8 @@ and no result line, its phase and check printed on stdout (a JSON line with
             0-2: every replica verifies its batches on the card in its own
             process (--verifier cuda: 4, 4 and 7 CUDA contexts), config 0's
             primary on an event-loop thread of this script; configs 3-4: every
-            replica sends its batches to one daemon, warmed first. Then two
+            replica sends its batches to one daemon on the shared one-slot
+            engine. Then two
             pbftd and two asyncio replicas commit 10 requests on that daemon.
             Rows with the card: requests/s, rounds/s, reply percentiles,
             windows per replica, ms per window, the first window's seconds
@@ -126,8 +133,8 @@ and no result line, its phase and check printed on stdout (a JSON line with
             each meets its completion bar (100, 100, 97%) with no detector
             verdict, the backup crashes and heals under load and catches up,
             stutter-primary changes view; (4) pbft_top
-            --gate --once over a loaded cluster exits 0; (5) endurance_soak
-            for 45 s (its CI size is 180 s) with the WAL on: gate green,
+            --gate --once (a 4 s window) over a loaded cluster exits 0; (5)
+            endurance_soak for 10 s (its CI size is 180 s) with the WAL on: gate green,
             req/s, reply p50/p99, RSS, fd and WAL slopes; (6) trace_report,
             consensus_timeline and flight_dump over the crash-backup arm's
             traces and black boxes, verify_status on the daemon (ready, the
@@ -137,7 +144,8 @@ and no result line, its phase and check printed on stdout (a JSON line with
             once per daemon window per shard (the daemon reports its counts
             in its JSON status).
 11. evidence the evidence and sweep tools (pbft_tpu_torch.scripts) on the
-            card: (1) gpu_evidence --steps kernel,decomp,profile, a process
+            card: (1) gpu_evidence --steps kernel,decomp (the profile step
+            dropped: the graphs phase profiles a replayed window), a process
             of its own: verify_many's rate at 4,096 with the verdicts against
             the oracle and the host time of one cudaGraphLaunch; the
             component rates (field multiply, carry, SHA-512 by chained CUDA
@@ -145,20 +153,38 @@ and no result line, its phase and check printed on stdout (a JSON line with
             window (SHA-512, mod L, decompress, ladder, compress, compare),
             each captured on the previous stage's outputs, equal to the eager
             path's, summing to within 15% of the whole window's device busy
-            ms; a profiled
-            window; every key positive. (2) chaos_soak --verifier cuda at
-            n = 4, 2 seeds x 120 steps in the sig and mac modes (the
+            ms; every key positive. (2) chaos_soak --verifier cuda at
+            n = 4, 1 seed x 120 steps in the sig and mac modes (the
             script's soak is 25 seeds x 400 steps), then --validate: every
             seed passes S1-S3 and L1, the validator trips. (3) scale_curve
-            --n 4,7 --verifier daemon, 4 clients x 10 requests: both rows,
+            --n 4,7 --verifier daemon, 4 clients x 5 requests: both rows,
             every request completed, the daemon's items equal to the
-            replicas' checks. (4) window_sweep on the daemon's cuda backend,
-            pipelines 8, 32 x flushes 0, 2,000 us at 64 requests, each row
+            replicas' checks. (4) window_sweep on the daemon's cuda backend
+            (the shared one-slot engine), pipeline 32 x flushes 0, 2,000 us
+            at 64 requests, each row
             with its launch_cost_model projections from (1)'s rate and graph
             launch. (5) bench_compare on (3)'s rows exits 0 against them and
             1 against a copy 20% slower. Each kernel's launches equal the
             cuda_verifier's windows, or the daemon's windows, per shard.
-12. parallel the sixth main path, pbft_tpu_torch.parallel, on B = 4,096
+12. bench    the port's bench entry (python -m pbft_tpu_torch.bench, the
+            counterpart of bench.py), each arm a process of its own at the
+            entry's defaults but PBFT_BENCH_SECS 1 (cut from 5): (1)
+            --cuda-worker, 4,096 rows x a chain of 16 verify_kernel
+            applications in one CUDA graph: backend cuda, a positive rate,
+            its window_ms beside (1)'s of the evidence phase, each kernel
+            launched once per chained application in the timed region; (2)
+            the default arm with no service at its target (127.0.0.1:7600):
+            it spawns the port's daemon on the card, drives it from 4
+            connections x 1,024 triples and stops it: backend
+            verify-service, state ready, cold_start_s, the daemon's process
+            gone and nvidia-smi's compute processes as before, each kernel
+            launched once per daemon window per shard (the daemon's status,
+            as the entry reads it); (3) PBFT_BENCH_NATIVE=1: backend
+            cpu-native; (4) PBFT_BENCH_CONSENSUS=1: 960 requests at pipeline
+            64, every one committed; (5), beside (1), --cuda-worker with
+            CUDA_VISIBLE_DEVICES="": exit 1, value 0.0, error backend-init,
+            no backend. Every line printed with the card.
+13. parallel the sixth main path, pbft_tpu_torch.parallel, on B = 4,096
             windows of COMMIT signatures for two cluster sizes: f = 1 (n = 4
             replicas, R = 1,024 rounds, threshold 3) and f = 10 (n = 31,
             R = 132, 4 pad rows at round id R, threshold 21). In each, one
@@ -173,13 +199,14 @@ and no result line, its phase and check printed on stdout (a JSON line with
             verifying its rows (partition_items): counts and certified equal
             on both and equal to (a). (d) The daemon over every local card:
             its status reports torch.cuda.device_count() devices and it
-            serves the oracle's verdicts. (a)-(c) also equal the eager path.
+            serves the oracle's verdicts, on the service phase's two-slot
+            engine. (a)-(c) also equal the eager path.
             (e) Per-window times (host clock after a synchronize, paths timed
             in turns) of quorum_certify in (a), (b) and (c), each beside its
             eager path, of round_step, and of verify_many on the same window;
             then one window of verify_many, (a) and (b) under torch.profiler
             (aten events, device busy ms, CUDA runtime calls).
-13. timing  CUDA-event times of each kernel's wrapper and of its plain
+14. timing  CUDA-event times of each kernel's wrapper and of its plain
             version at B = 4096, the bound of each (per pipe, below), the
             time of ladder_digits (the ladder wrapper's one torch op), a
             256-row verify_many window of 3 items (the simulation's shape),
@@ -194,8 +221,10 @@ warmup and a capture of shapes 16, 64 and 256 in this process, against that
 replica's windows; each asyncio daemon run and the mixed cluster, after the
 daemon's warm; the health phase's daemon, read from its status after its
 warm and at the phase's end; the evidence phase's chaos soak and window
-sweep, and each scale_curve point, read from its daemon's status; each
-parallel path, in each of its processes)
+sweep, and each scale_curve point, read from its daemon's status; the bench
+entry's card arm, over its timed region, and its spawned daemon, over the
+entry's traffic, each read in the entry's process; each parallel path, in
+each of its processes)
 and read just after it: every kernel must have launched exactly
 once per window per shard that the path formed. A replay counts the
 launches its graph recorded at capture; every path's shapes are captured
@@ -522,9 +551,10 @@ def _request(sock, items):
     return [bool(b) for b in out]
 
 
-def drive_clients(address: str, VS, pool, want) -> dict:
-    """Four client threads (an f = 1 cluster's replicas), 8 requests of 1,024
-    triples each, a status probe after each; verdicts against the oracle."""
+def drive_clients(address: str, VS, pool, want, requests: int = 8) -> dict:
+    """Four client threads (an f = 1 cluster's replicas), ``requests``
+    requests of 1,024 triples each, a status probe after each; verdicts
+    against the oracle."""
     errors, bad = [], []
 
     def client(cid: int):
@@ -532,7 +562,7 @@ def drive_clients(address: str, VS, pool, want) -> dict:
         host, port = address.rsplit(":", 1)
         try:
             with socket.create_connection((host, int(port)), timeout=120) as sock:
-                for _ in range(8):
+                for _ in range(requests):
                     pick = crng.integers(0, len(pool), size=1024)
                     got = _request(sock, [pool[i] for i in pick])
                     if got != [want[i] for i in pick]:
@@ -550,16 +580,23 @@ def drive_clients(address: str, VS, pool, want) -> dict:
     for t in threads:
         t.join(600)
     secs = time.perf_counter() - t0
-    return {"secs": secs, "verifies_per_s": 4 * 8 * 1024 / secs, "correct": not bad and not errors,
+    return {"secs": secs, "verifies_per_s": 4 * requests * 1024 / secs, "correct": not bad and not errors,
             "errors": errors[:3]}
 
 
-def run_service(VS, K, pool, want, card: str, path: str, eager_backend=None, **daemon_kwargs) -> tuple[dict, dict]:
+SERVICE_TURNS = 1  # graph-against-eager turns per service run (cut from 2)
+SERVICE_TURN_REQUESTS = 2  # requests per client in each such turn (cut from 8)
+
+
+def run_service(VS, K, pool, want, card: str, path: str, eager_backend=None, engine=None,
+                **daemon_kwargs) -> tuple[dict, dict]:
     """One daemon, four clients of 8 x 1,024 triples; (result, launches).
-    With ``eager_backend``, then the same traffic in turns (graph, eager,
-    eager, graph, ...) against this daemon and a service with the same
-    knobs whose backend runs each window op by op."""
-    daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0, **daemon_kwargs)
+    With ``eager_backend``, then SERVICE_TURN_REQUESTS requests a client in
+    SERVICE_TURNS turns (graph, eager, eager, graph, ...) against this daemon and a service with
+    the same knobs whose backend runs each window op by op. ``engine`` is a
+    CudaVerifyEngine to serve on, shared with other daemons (the first to
+    start warms it)."""
+    daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0, engine=engine, **daemon_kwargs)
     try:
         t0 = time.perf_counter()
         daemon.start(wait_ready=True, timeout=600)
@@ -587,25 +624,27 @@ def run_service(VS, K, pool, want, card: str, path: str, eager_backend=None, **d
                                        inflight=daemon_kwargs.get("inflight", 2), **knobs).start()
             try:
                 rates = {"graph": [], "eager": []}
-                for rep in range(2):
+                for rep in range(SERVICE_TURNS):
                     for name in (("graph", "eager") if rep % 2 == 0 else ("eager", "graph")):
-                        r = drive_clients(daemon.address if name == "graph" else eager.address, VS, pool, want)
+                        r = drive_clients(daemon.address if name == "graph" else eager.address, VS, pool, want,
+                                          SERVICE_TURN_REQUESTS)
                         check(r["correct"], f"{path}: {name} service verdicts wrong")
                         rates[name].append(r["verifies_per_s"])
             finally:
                 eager.stop()
             result["turns_verifies_per_s"] = rates
-            emit("timing", path=path, compare="graph_vs_eager_in_turns", reps=2, verifies_per_s=rates,
+            emit("timing", path=path, compare="graph_vs_eager_in_turns", reps=SERVICE_TURNS, verifies_per_s=rates,
                  graph_over_eager=float(np.mean(rates["graph"]) / np.mean(rates["eager"])), card=card)
         return result, launches
     finally:
         daemon.stop()
 
 
-def run_chunked(VS, K, pool, want, card: str) -> dict:
-    """One 5,000-item engine call: two windows across the 4,096 boundary."""
-    engine = VS.CudaVerifyEngine()
-    engine.warm()
+def run_chunked(VS, K, pool, want, card: str, engine) -> dict:
+    """One 5,000-item call of ``engine`` (warmed here if it is not):
+    two windows across the 4,096 boundary."""
+    if not engine.warmed_sizes:
+        engine.warm()
     big = [pool[i % len(pool)] for i in range(5000)]
     K.reset_launches()
     ok = engine.verify(big) == [want[i % len(pool)] for i in range(5000)]
@@ -797,9 +836,10 @@ def phase_surface(VS, K, pool, want, card: str) -> dict:
 # The protocol path: pbftd clusters on their own pools and on the card.
 # ---------------------------------------------------------------------------
 
-# Turns per arm, by config index (each turn runs both arms, the order
-# alternating). Every config runs at the harness's own depth.
-PROTOCOL_TURNS = {0: 1, 1: 2, 2: 2, 3: 1, 4: 1}
+# Requests per config where the smoke cuts the harness's own depth (100,
+# 100, 96 and 96), so that the smoke fits its time; config 1 runs at the
+# harness's (200).
+PROTOCOL_REQUESTS = {0: 25, 2: 48, 3: 48, 4: 48}
 
 
 def _trace_events(trace_dir: str, ev: str) -> int:
@@ -812,12 +852,13 @@ def _trace_events(trace_dir: str, ev: str) -> int:
     return count
 
 
-def phase_protocol(K, VS, card: str) -> dict:
+def phase_protocol(K, VS, card: str, engine=None) -> dict:
     """BASELINE's configs 0-4 (pbft_tpu_torch.bench.harness CONFIGS) at
     their full replica counts as pbftd clusters, each on the native arm
     (pbftd's own C++ verify pools) and on the native-cuda arm (every replica
-    -> one coalescing daemon on the card, warmed before the config's first
-    run), in turns. Each run's row is printed. Checks: every driven request
+    -> one coalescing daemon on the card, serving on ``engine``, a one-slot
+    CudaVerifyEngine shared by every config's daemon), in turns, one run an
+    arm, at PROTOCOL_REQUESTS. Each run's row is printed. Checks: every driven request
     commits with f + 1 matching validly signed replies (the harness raises
     otherwise); on the card's arm nothing is verified on the host: the
     daemon's fallback served no item after the warm, no replica's verify
@@ -838,37 +879,38 @@ def phase_protocol(K, VS, card: str) -> dict:
         for index, (name, n, _clients, _requests, byzantine) in enumerate(H.CONFIGS):
             root = os.path.join(traces, f"cfg{index}")
             t0 = time.perf_counter()
-            daemon = H.start_daemon("cuda", trace_dir=root)
+            daemon = H.start_daemon("cuda", trace_dir=root, engine=engine)
             warm_s = time.perf_counter() - t0
+            requests = PROTOCOL_REQUESTS.get(index)
             try:
                 ready = VS.probe_status_json(daemon.address)
                 K.reset_launches()  # after the warm's captures and all-pad windows
-                for turn in range(PROTOCOL_TURNS[index]):
-                    for arm in ("native", "native-cuda") if turn % 2 == 0 else ("native-cuda", "native"):
-                        trace_dir = os.path.join(root, f"{arm}-{turn}")
-                        if arm == "native":
-                            res = H.run_native_config(index, trace_dir=trace_dir)
-                        else:
-                            res = H.run_native_cuda_config(index, trace_dir=trace_dir, daemon=daemon)
-                        acc = res.accounting
-                        deadline_events = _trace_events(trace_dir, "verify_deadline_fired")
-                        emit("protocol", config_index=index, arm=arm, turn=turn, row=dataclasses.asdict(res),
-                             deadline_events_in_traces=deadline_events,
-                             cpu_count=os.cpu_count(), card=card)
-                        check(res.replicas == n and acc["view_changes_started"] == 0,
-                              f"config {index} {arm}: {res.replicas} replicas, {acc['view_changes_started']} view changes")
-                        check(deadline_events == 0 and acc["verify_deadline_fired"] == 0,
-                              f"config {index} {arm}: a replica's verify deadline fired")
-                        if byzantine:
-                            check(acc["replica_sig_rejected"] > 0, f"config {index} {arm}: no signature rejected")
-                        if arm == "native-cuda":
-                            check(res.service_fallback_items == 0 and acc["service_fallback_items"] == 0,
-                                  f"config {index}: the daemon's fallback served traffic after the warm")
-                            check(acc["service_items"] == acc["replica_sig_checks"],
-                                  f"config {index}: the daemon verified {acc['service_items']} items, the "
-                                  f"replicas checked {acc['replica_sig_checks']}")
-                            check(res.service_windows > 0 and (res.service_rejected > 0) == byzantine,
-                                  f"config {index}: {res.service_windows} windows, {res.service_rejected} rejected")
+                for arm in ("native", "native-cuda") if index % 2 == 0 else ("native-cuda", "native"):
+                    trace_dir = os.path.join(root, arm)
+                    if arm == "native":
+                        res = H.run_native_config(index, requests=requests, trace_dir=trace_dir)
+                    else:
+                        res = H.run_native_cuda_config(index, requests=requests, trace_dir=trace_dir,
+                                                       daemon=daemon)
+                    acc = res.accounting
+                    deadline_events = _trace_events(trace_dir, "verify_deadline_fired")
+                    emit("protocol", config_index=index, arm=arm, row=dataclasses.asdict(res),
+                         deadline_events_in_traces=deadline_events,
+                         cpu_count=os.cpu_count(), card=card)
+                    check(res.replicas == n and acc["view_changes_started"] == 0,
+                          f"config {index} {arm}: {res.replicas} replicas, {acc['view_changes_started']} view changes")
+                    check(deadline_events == 0 and acc["verify_deadline_fired"] == 0,
+                          f"config {index} {arm}: a replica's verify deadline fired")
+                    if byzantine:
+                        check(acc["replica_sig_rejected"] > 0, f"config {index} {arm}: no signature rejected")
+                    if arm == "native-cuda":
+                        check(res.service_fallback_items == 0 and acc["service_fallback_items"] == 0,
+                              f"config {index}: the daemon's fallback served traffic after the warm")
+                        check(acc["service_items"] == acc["replica_sig_checks"],
+                              f"config {index}: the daemon verified {acc['service_items']} items, the "
+                              f"replicas checked {acc['replica_sig_checks']}")
+                        check(res.service_windows > 0 and (res.service_rejected > 0) == byzantine,
+                              f"config {index}: {res.service_windows} windows, {res.service_rejected} rejected")
                 end = VS.probe_status_json(daemon.address)
             finally:
                 daemon.stop()
@@ -892,15 +934,20 @@ def phase_protocol(K, VS, card: str) -> dict:
 # The simulation path: the Python replica cores in memory, windows on the card.
 # ---------------------------------------------------------------------------
 
-# At the harness's depth (1, 200, 100, 50, 12 requests): (signatures
-# verified, windows of 256 rows on the cuda arm) per config, as the JAX
-# package's cpu arm counts them (the CPU tests pin the port's cpu arm to it).
-SIM_EXPECTED = {0: (24, 8), 1: (4944, 1624), 2: (8652, 424), 3: (24720, 310), 4: (22320, 188)}
+# Requests per config where the smoke cuts the harness's depth (200, 100
+# and 50), so that the smoke fits its time; configs 0 and 4 run at the
+# harness's (1 and 12).
+SIM_REQUESTS = {1: 25, 2: 50, 3: 25}
+# At those depths: (signatures verified, windows of 256 rows on the cuda
+# arm) per config, as the port's cpu arm counts them (at the harness's full
+# depth, 4,944, 8,652 and 24,720 signatures for configs 1-3, the CPU tests
+# pin that arm to the JAX package's cpu arm).
+SIM_EXPECTED = {0: (24, 8), 1: (612, 202), 2: (4326, 220), 3: (12240, 170), 4: (22320, 188)}
 SIM_BATCH_PAD = 256
 # Rows run a second time without the invariant checker, to show what of its
-# cost the checked rows' seconds still hold: the cpu arm on every config,
-# the cuda arm on the config that sends the most messages a round.
-SIM_UNCHECKED = {"cpu": (0, 1, 2, 3, 4), "cuda": (4,)}
+# cost the checked rows' seconds still hold: the cpu arm on every config
+# (the cuda arm's rerun of config 4 was cut so that the smoke fits its time).
+SIM_UNCHECKED = {"cpu": (0, 1, 2, 3, 4), "cuda": ()}
 # Row fields that differ between two runs that ended alike.
 SIM_RUN_FIELDS = {"seconds", "rounds_per_sec", "sig_verifies_per_sec", "requests_per_sec", "verifier",
                   "capture_s", "invariant_s"}
@@ -915,7 +962,7 @@ def _echo(operation, seq):
 
 def phase_simulation(K, card: str) -> dict:
     """BASELINE's configs 0-4 (pbft_tpu_torch.bench.harness CONFIGS) at full
-    width in the in-memory simulation, on the cpu arm (the native pool) and
+    width and SIM_REQUESTS in the in-memory simulation, on the cpu arm (the native pool) and
     the cuda arm (each step's items in windows of 256 rows on the card), in
     turns, with an invariant checker on every run (its seconds left out of
     the rows' times), then the SIM_UNCHECKED rows again without it. Checks:
@@ -923,8 +970,7 @@ def phase_simulation(K, card: str) -> dict:
     otherwise); every run of a config ends alike (every replica's view,
     executed_upto, state digest and counters; the verifier's calls, items
     and rejections; the signatures the replicas checked and rejected), with
-    the signatures and the card's windows that the JAX cpu arm counts at
-    the harness's depth; config 4's Byzantine signatures rejected on
+    the signatures and the card's windows of SIM_EXPECTED; config 4's Byzantine signatures rejected on
     the card as on the host; no view change; on the cuda arm no signature
     verified on the host (native pool, host_batch_verify, the oracle, the
     replicas' inline verifier); each kernel launched once per window (the
@@ -981,7 +1027,8 @@ def phase_simulation(K, card: str) -> dict:
             for arm, checked in turns:
                 host.update({k: 0 for k in host})
                 K.reset_launches()
-                res = H.run_sim_config(index, arm, batch_pad=SIM_BATCH_PAD, invariants=checked)
+                res = H.run_sim_config(index, arm, batch_pad=SIM_BATCH_PAD, requests=SIM_REQUESTS.get(index),
+                                       invariants=checked)
                 got = dict(K.LAUNCHES)
                 rows[arm, checked] = res
                 acc = res.accounting
@@ -1170,14 +1217,16 @@ def _replica_checks(cluster) -> list:
     return last
 
 
-def phase_asyncio(K, VS, card: str) -> dict:
+def phase_asyncio(K, VS, card: str, engine=None) -> dict:
     """BASELINE's configs 0-4 (pbft_tpu_torch.bench.harness CONFIGS) at
     full width as clusters of the port's asyncio replicas
     (pbft_tpu_torch.net.server), at the ASYNCIO_REQUESTS depths. Configs 0-2:
     every replica verifies its batches on the card in its own process
     (--verifier cuda; 4, 4 and 7 CUDA contexts on one card), config 0's
     primary on an event-loop thread of this process; configs 3-4: every
-    replica sends its batches to one daemon on the card, warmed first. Then
+    replica sends its batches to one daemon on the card, serving on
+    ``engine`` (a one-slot CudaVerifyEngine, warmed by the first daemon
+    that starts on it). Then
     a mixed cluster, two pbftd and two asyncio replicas on config 4's
     daemon, commits ASYNCIO_MIXED_REQUESTS. Checks: every request commits
     with f + 1 matching signed replies (the harness raises otherwise); every
@@ -1238,7 +1287,7 @@ def phase_asyncio(K, VS, card: str) -> dict:
             daemon = None
             t0 = time.perf_counter()
             if not in_process:
-                daemon = H.start_daemon("cuda", trace_dir=trace_dir)
+                daemon = H.start_daemon("cuda", trace_dir=trace_dir, engine=engine)
             warm_s = time.perf_counter() - t0
             try:
                 if daemon is not None:
@@ -1325,8 +1374,8 @@ HEALTH_CHAOS = dict(n=4, clients=8, requests_each=30, window=8, batch=32, batch_
 # 30 per client lasted 1.3 s on an H100 (~190 req/s), so this arm sends 320
 # per client (~12 s).
 HEALTH_CRASH_REQUESTS = 320
-HEALTH_TOP_WINDOW_S = 8  # pbft_top --once sampling window, under load
-HEALTH_ENDURANCE_S = 45  # endurance_soak's CI size is 180 s; cut so that the smoke fits its time
+HEALTH_TOP_WINDOW_S = 4  # pbft_top --once sampling window, under load (cut from 8)
+HEALTH_ENDURANCE_S = 10  # endurance_soak's CI size is 180 s; cut so that the smoke fits its time
 
 
 def _port_env() -> dict:
@@ -1556,26 +1605,28 @@ def phase_health(K, VS, card: str, backend: str = "cuda") -> dict:
 # The evidence and sweep tools (pbft_tpu_torch.scripts), on the card.
 # ---------------------------------------------------------------------------
 
-EVIDENCE_STEPS = "kernel,decomp,profile"  # the protocol phase runs configs 0-1
+# The protocol phase runs configs 0-1; the graphs phase profiles a replayed
+# 4,096 window as the profile step would (dropped so that the smoke fits).
+EVIDENCE_STEPS = "kernel,decomp"
 EVIDENCE_STAGE_TOLERANCE = 0.15  # the stages' device busy ms against the whole window's
 # chaos_soak at n = 4: seeds x modes of this many steps (the script's soak
 # is 25 seeds x 400 steps x n = 4, 7 x both modes).
-EVIDENCE_CHAOS = dict(seeds=2, steps=120, modes=("sig", "mac"))
+EVIDENCE_CHAOS = dict(seeds=1, steps=120, modes=("sig", "mac"))
 # scale_curve at n = 4 and 7 through one gateway, few requests per client
 # (the script's default is 8 clients x 50 at n = 4, 7, 16, 31).
-EVIDENCE_SCALE = dict(ns=(4, 7), clients=4, requests=10)
+EVIDENCE_SCALE = dict(ns=(4, 7), clients=4, requests=5)
 # window_sweep's grid (the script's is pipelines 8-64 x flushes 0-2,000 us
 # at 192 requests).
-EVIDENCE_SWEEP = dict(pipelines=(8, 32), flushes=(0, 2000), requests=64)
+EVIDENCE_SWEEP = dict(pipelines=(32,), flushes=(0, 2000), requests=64)
 
 
 def _positive(doc: dict, keys) -> bool:
     return all(isinstance(doc.get(k), (int, float)) and doc[k] > 0 for k in keys)
 
 
-def phase_evidence(K, VS, card: str, backend: str = "cuda") -> tuple:
+def phase_evidence(K, VS, card: str, backend: str = "cuda", engine=None) -> tuple:
     """The evidence and sweep tools on the card. (1) gpu_evidence --steps
-    kernel,decomp,profile, a process of its own (each step in one more):
+    kernel,decomp, a process of its own (each step in one more):
     every key present and positive, verdicts equal to the oracle, the
     stages' busy ms within 15% of the whole window's device busy ms, each stage's
     outputs equal to the eager path's. (2) chaos_soak --verifier cuda at
@@ -1584,14 +1635,15 @@ def phase_evidence(K, VS, card: str, backend: str = "cuda") -> tuple:
     cuda_verifier window. (3) scale_curve --n 4,7 --verifier daemon: both
     rows, every request completed, the daemon's items equal to the
     replicas' checks, launches = daemon windows. (4) window_sweep on the
-    daemon's cuda backend over EVIDENCE_SWEEP, each row with its
+    daemon's cuda backend over EVIDENCE_SWEEP (on ``engine``, a one-slot
+    CudaVerifyEngine, warmed here unless it is), each row with its
     launch_cost_model projections at 100 us and at step 1's graph launch,
     from step 1's rate; launches = daemon windows. (5) bench_compare on
     step 3's rows: against themselves exit 0, against a copy with
     requests_per_sec cut by 20% exit 1. ``backend="native"`` rehearses the
     phase without a card (steps 1-2 then run on the CPU's arms and launch
     counts are not checked). Returns (launches by path, each kernel's
-    stage and its device ms from step 1)."""
+    stage and its device ms from step 1, step 1's kernel record)."""
     import tempfile
     from pathlib import Path
 
@@ -1619,7 +1671,7 @@ def phase_evidence(K, VS, card: str, backend: str = "cuda") -> tuple:
             emit("evidence", step="gpu_evidence_log", lines=[ln for ln in ev.stderr.splitlines()
                                                              if ln.startswith("[gpu_evidence")])
             check(ev.returncode == 0, f"gpu_evidence exit {ev.returncode}: {ev.stdout[-2000:]}{ev.stderr[-3000:]}")
-            kernel, decomp, prof = docs["kernel"], docs["decomp"], docs["profile"]
+            kernel, decomp = docs["kernel"], docs["decomp"]
             check(_positive(kernel, ("value", "graph_launch_us", "window_ms", "capture_s"))
                   and kernel["verdicts_equal_oracle"] is True and kernel["invalid_rows"] == 1, f"kernel: {kernel}")
             check(_positive(decomp, ("field_mul_per_sec", "carry_per_sec", "carry_share_of_mul",
@@ -1633,7 +1685,6 @@ def phase_evidence(K, VS, card: str, backend: str = "cuda") -> tuple:
             check(abs(decomp["stages_over_window"] - 1) <= EVIDENCE_STAGE_TOLERANCE,
                   f"the stages' {decomp['stages_busy_ms']} busy ms against the window's "
                   f"{decomp['window']['busy_ms']} busy ms")
-            check(_positive(prof, ("wall_ms", "device_busy_ms", "kernels_per_window")), f"profile: {prof}")
             stage_ms = {st["kernel"]: {"stage": st["stage"], "stage_ms": st["ms"], "stage_busy_ms": st["busy_ms"]}
                         for st in stages if st["kernel"]}
         else:
@@ -1680,9 +1731,10 @@ def phase_evidence(K, VS, card: str, backend: str = "cuda") -> tuple:
 
         # (4) window_sweep on the card's daemon, projected from step 1
         t0 = time.perf_counter()
-        engine = None
-        if on_card:
-            engine = CudaVerifyEngine(slots=1)
+        if not on_card:
+            engine = None
+        elif engine is None or not engine.warmed_sizes:
+            engine = engine or CudaVerifyEngine(slots=1)
             engine.warm()
         K.reset_launches()
         sweep = window_sweep.sweep(EVIDENCE_SWEEP["pipelines"], EVIDENCE_SWEEP["flushes"],
@@ -1708,7 +1760,112 @@ def phase_evidence(K, VS, card: str, backend: str = "cuda") -> tuple:
         emit("evidence", step="bench_compare", same_rc=same, cut_20pct_rc=slower,
              phase_s=time.perf_counter() - phase_t0, card=card)
         check(same == 0 and slower == 1, f"bench_compare: {same} against itself, {slower} against a 20% cut")
-    return launches, stage_ms
+    return launches, stage_ms, kernel
+
+
+BENCH_SECS = 1  # PBFT_BENCH_SECS, cut from the entry's 5 so that the smoke fits its time
+BENCH_DEFAULT_SERVICE = "127.0.0.1:7600"  # the service arm's default target
+
+
+def start_bench(*args, **env):
+    """``python -m pbft_tpu_torch.bench ARGS`` started with ``env`` added (and
+    no ``PBFT_VERIFY_SERVICE``: the service arm probes its default target)."""
+    base = {k: v for k, v in _port_env().items() if k != "PBFT_VERIFY_SERVICE"}
+    return subprocess.Popen([sys.executable, "-m", "pbft_tpu_torch.bench", *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=HERE, env={**base, **env})
+
+
+def finish_bench(proc, timeout: float = 900.0) -> tuple:
+    """Wait for ``start_bench``'s process: (exit code, its last line of
+    standard output as a dict, its standard error)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        raise PhaseFailed(f"bench {proc.args[3:]} did not end in {timeout} s")
+    lines = out.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if lines else {}
+    except ValueError:
+        line = {}
+    return proc.returncode, line, err
+
+
+def _compute_apps() -> int:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=30).stdout
+    return len([ln for ln in out.splitlines() if ln.strip()])
+
+
+def phase_bench(K, card: str, evidence_window_ms=None) -> dict:
+    """The bench entry, python -m pbft_tpu_torch.bench, each arm a process of
+    its own at the entry's defaults but PBFT_BENCH_SECS (BENCH_SECS): (1)
+    --cuda-worker (one CUDA graph of a chain of 16 verify_kernel
+    applications at 4,096 rows); (2) the default arm with no service at its
+    target: it spawns the port's daemon on the card, drives it and stops
+    it; (3) PBFT_BENCH_NATIVE=1; (4) PBFT_BENCH_CONSENSUS=1; (5), started
+    beside (1), --cuda-worker with no visible card: the backend-init
+    failure line. Each line is checked; the launches of (1)'s
+    timed region and of (2)'s daemon over the entry's traffic are read from
+    the lines. Returns the launches by path."""
+    from pbft_tpu_torch.net.verify_service import probe_status_json
+
+    phase_t0 = time.perf_counter()
+    launches = {}
+    secs = {"PBFT_BENCH_SECS": str(BENCH_SECS)}
+
+    def arm(name: str, *args, proc=None, **env) -> tuple:
+        t0 = time.perf_counter()
+        rc, line, err = finish_bench(proc or start_bench(*args, **{**secs, **env}))
+        emit("bench", arm=name, rc=rc, line=line, seconds=time.perf_counter() - t0, card=card)
+        return rc, line, f"rc={rc} {line} {err[-3000:]}"
+
+    # (5) starts beside (1): a process that sees no card
+    no_card = start_bench("--cuda-worker", CUDA_VISIBLE_DEVICES="")
+    try:
+        # (1) the card, in process: the chain of verify_kernel applications
+        rc, line, what = arm("cuda", "--cuda-worker")
+        emit("bench", arm="cuda", window_ms=line.get("window_ms"), evidence_window_ms=evidence_window_ms,
+             capture_s=line.get("capture_s"), card=card)
+        check(rc == 0 and line.get("backend") == "cuda" and line.get("value", 0) > 0
+              and (line.get("batch"), line.get("chain")) == (B, 16) and line.get("window_ms", 0) > 0
+              and line.get("card"), f"bench --cuda-worker: {what}")
+        launches["bench_cuda"] = check_launches(K, "bench_cuda", line["applications"], got=line["launches"])
+
+        # (5) no visible card: the failure line, never a number under cuda
+        rc, line, what = arm("cuda_no_card", proc=no_card)
+        check(rc == 1 and line.get("value") == 0.0 and str(line.get("error", "")).startswith("backend-init")
+              and "backend" not in line, f"bench --cuda-worker without a card: {what}")
+    finally:
+        stop_process(no_card)
+
+    # (2) the default arm: nothing at its target, so it spawns the daemon
+    check(probe_status_json(BENCH_DEFAULT_SERVICE, timeout=2.0) is None,
+          f"a verify service already answers at {BENCH_DEFAULT_SERVICE}")
+    apps_before = _compute_apps()
+    rc, line, what = arm("service")
+    apps_after = _compute_apps()
+    emit("bench", arm="service", compute_apps_before=apps_before, compute_apps_after=apps_after, card=card)
+    check(rc == 0 and line.get("backend") == "verify-service" and line.get("service_state") == "ready"
+          and line.get("value", 0) > 0 and line.get("cold_start_s", 0) > 0 and line.get("devices", 0) >= 1
+          and line.get("service_windows", 0) > 0, f"bench (service arm): {what}")
+    check(not os.path.exists(f"/proc/{line['service_pid']}") and apps_after <= apps_before,
+          f"the spawned daemon outlived the entry: pid {line['service_pid']}, compute processes "
+          f"{apps_before} -> {apps_after}")
+    launches["bench_service"] = check_launches(K, "bench_service", line["service_windows"], line["devices"],
+                                               got=line["kernel_launches"])
+
+    # (3) the host's native pool
+    rc, line, what = arm("native", PBFT_BENCH_NATIVE="1")
+    check(rc == 0 and line.get("backend") == "cpu-native" and line.get("value", 0) > 0
+          and line.get("threads", 0) >= 1, f"bench PBFT_BENCH_NATIVE=1: {what}")
+
+    # (4) the f = 1 firehose on pbftd
+    rc, line, what = arm("consensus", PBFT_BENCH_CONSENSUS="1")
+    check(rc == 0 and line.get("backend") == "consensus-native" and line.get("metric") == "pbft_requests_per_sec"
+          and line.get("requests") == 960 and line.get("value", 0) > 0, f"bench PBFT_BENCH_CONSENSUS=1: {what}")
+    emit("bench", phase_s=time.perf_counter() - phase_t0, card=card)
+    return launches
 
 
 def torch_card_name(card: str) -> str:
@@ -2099,7 +2256,7 @@ def run_gloo_pair(device: str, windows, card: str) -> dict:
     return results
 
 
-def phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card: str) -> dict:
+def phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card: str, engine=None) -> dict:
     windows = [quorum_window(batch, pool, want, f, rng) for f in CLUSTERS]
     launches = {}
     mesh_a = P.make_mesh()
@@ -2130,7 +2287,7 @@ def phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card: str) -> dic
         check_launches(K, "parallel_c_gloo_two_processes", len(windows), got=c[r]["launches"], rank=r)
     launches["parallel_c_gloo_two_processes"] = {k: c[0]["launches"][k] + c[1]["launches"][k] for k in K.KERNELS}
 
-    daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0)
+    daemon = VS.VerifyServiceDaemon(host="127.0.0.1", port=0, engine=engine)
     try:
         daemon.start(wait_ready=True, timeout=600)
         js = VS.probe_status_json(daemon.address)
@@ -2269,30 +2426,37 @@ def main() -> int:
         enter("graphs")
         phase_graphs(torch, E, K, VS, batch, pool, want, rng, card)
         enter("service")
+        # Engines that daemons started one after another share, each warmed
+        # once: two slots (the daemon's default inflight) for the service
+        # phase's daemons and the parallel phase's, one for the chunked call
+        # and the protocol, asyncio and evidence phases' daemons.
+        engine2, engine1 = VS.CudaVerifyEngine(slots=2), VS.CudaVerifyEngine(slots=1)
         services = {}
         for path, kwargs in (("service_default", {}),
                              ("service_window_4096", {"flush_items": 4096, "flush_us": 100_000})):
             services[path], launches[path] = run_service(
                 VS, K, pool, want, card, path, eager_backend=lambda items: eager_many(torch, E, batch, items),
-                **kwargs)
+                engine=engine2, **kwargs)
         window_run = services["service_window_4096"]
         check(window_run["launches"] < window_run["requests"], "no coalescing in the 4,096-item window")
-        launches["engine_chunked"] = run_chunked(VS, K, pool, want, card)
+        launches["engine_chunked"] = run_chunked(VS, K, pool, want, card, engine1)
         enter("surface")
         launches["surface_service_verifier"] = phase_surface(VS, K, pool, want, card)
         enter("protocol")
-        launches.update(phase_protocol(K, VS, card))
+        launches.update(phase_protocol(K, VS, card, engine1))
         enter("simulation")
         launches.update(phase_simulation(K, card))
         enter("asyncio")
-        launches.update(phase_asyncio(K, VS, card))
+        launches.update(phase_asyncio(K, VS, card, engine1))
         enter("health")
         launches.update(phase_health(K, VS, card))
         enter("evidence")
-        evidence_launches, stage_ms = phase_evidence(K, VS, card)
+        evidence_launches, stage_ms, evidence_kernel = phase_evidence(K, VS, card, engine=engine1)
         launches.update(evidence_launches)
+        enter("bench")
+        launches.update(phase_bench(K, card, evidence_kernel.get("window_ms")))
         enter("parallel")
-        launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card))
+        launches.update(phase_parallel(torch, P, K, E, VS, batch, pool, want, rng, card, engine2))
         enter("timing")
         times = phase_timing(torch, F, E, K, batch, pool, rng, card, env)
         for path, run in services.items():
