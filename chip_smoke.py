@@ -10,16 +10,22 @@ and no result line, its phase and check printed on stdout (a JSON line with
 1. env      the card (nvidia-smi name and power limit), torch/CUDA versions,
             the kernel build from the sources in this checkout (nvcc for
             sm_90a, one process per source, all started together) with
-            registers and spills; the ladder must not spill.
+            registers and spills; the ladder and SHA-512 kernels must not
+            spill.
 2. kernels  each CUDA kernel against its plain PyTorch version on the card at
-            B = 4096, at 8192 (verify_many's 5,000-item window) and at the
-            ragged sizes 1, 17 and 300: inv and pow_p58 on random carried
-            limbs plus the hostile-bounds rows (+-1023 per limb,
-            alternating) and zero; the ladder on random scalars below L and
-            decompressed keys (small-order ones included), with hostile rows
-            in place of some -A (not curve points). Tolerance: exact
-            equality of the raw limbs; at 4096 also after canon/compress and
-            against the big-integer oracle on a few curve rows.
+            B = 4096, at 8192 (verify_many's 5,000-item window), at every
+            other window shape and at the ragged sizes 1, 17 and 300: inv
+            and pow_p58 on random carried limbs plus the hostile-bounds rows
+            (+-1023 per limb, alternating) and zero; the ladder on random
+            scalars below L and decompressed keys (small-order ones
+            included), with hostile rows in place of some -A (not curve
+            points); SHA-512 on random 96-byte rows with all-0x00, all-0xff
+            and one-bit-apart rows first, and at 4096 also on rows of 0,
+            111, 112, 128 and 200 bytes (across the padding's one-to-two
+            block edge). Tolerance: exact equality of the raw limbs and
+            digest bytes (digests also against hashlib on every row); at
+            4096 also after canon/compress and against the big-integer
+            oracle on a few curve rows.
 3. verify   the first main path: verify_many at every pad shape and at
             ragged sizes, on batches signed with the port's oracle that mix in
             invalid rows; verdicts equal ref.verify row for row, and a fixed
@@ -153,7 +159,8 @@ and no result line, its phase and check printed on stdout (a JSON line with
             window (SHA-512, mod L, decompress, ladder, compress, compare),
             each captured on the previous stage's outputs, equal to the eager
             path's, summing to within 15% of the whole window's device busy
-            ms; every key positive. (2) chaos_soak --verifier cuda at
+            ms, the SHA-512 stage on its kernel (at most 8 device
+            activities); every key positive. (2) chaos_soak --verifier cuda at
             n = 4, 1 seed x 120 steps in the sig and mac modes (the
             script's soak is 25 seeds x 400 steps), then --validate: every
             seed passes S1-S3 and L1, the validator trips. (3) scale_curve
@@ -281,11 +288,18 @@ OPS_PER_ITEM = {
     "p58": 251 * SQR_OPS + 11 * MUL_OPS,
     # table: 1 doubling + 13 additions; then 128 steps of 2 dbl + 1 add
     "ladder": PDBL_OPS + 13 * PADD_OPS + 128 * (2 * PDBL_OPS + PADD_OPS),
+    # One 128-byte block, in 32-bit operations with 3-input logic and adds:
+    # a round is Sigma0 and Sigma1 (3 rotations of 2 funnel shifts and 2
+    # xors each, 8 apiece), ch and maj (2 each) and six 64-bit adds (2
+    # each); a schedule word is sigma0 and sigma1 (8 apiece) and three
+    # adds; then the state's 8 adds. No multiplies.
+    "sha512": np.array([0, 80 * (8 + 8 + 2 + 2 + 6 * 2) + 64 * (8 + 8 + 3 * 2) + 8 * 2]),
 }
 BYTES_PER_ITEM = {  # each input read once, each output written once
     "inv": 2 * 32 * 4,
     "p58": 2 * 32 * 4,
     "ladder": (128 + 4 * 32 + 4 * 32) * 4,
+    "sha512": 96 + 64,
 }
 # Every window shape the paths form (verify_many's pad ladder, which the
 # daemon and the protocol path share, 4096 for the parallel phase and 256
@@ -296,7 +310,9 @@ SOURCES = {
     "inv": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:184"),
     "p58": ("pbft_tpu_torch/crypto/csrc/chains.cu", "pbft_tpu/crypto/pallas_kernels.py:190"),
     "ladder": ("pbft_tpu_torch/crypto/csrc/ladder.cu", "pbft_tpu/crypto/pallas_kernels.py:210"),
+    "sha512": ("pbft_tpu_torch/crypto/csrc/sha512.cu", "none: plain pbft_tpu/crypto/sha512.py"),
 }
+SHA512_LENGTHS = (0, 111, 112, 128, 200)  # phase_kernels at B, beside the window's 96
 
 
 # The parallel phase: f -> replicas n = 3f + 1. A window holds R = B // n
@@ -419,7 +435,8 @@ def phase_env(torch, K, card: str) -> dict:
     for name, regs in info["kernels"].items():
         check("registers" in regs, f"no ptxas report for {name}")
     emit("env", **env)
-    check(info["kernels"]["ladder"].get("spill_store_bytes") == 0, "the ladder kernel spills")
+    for name in ("ladder", "sha512"):
+        check(info["kernels"][name].get("spill_store_bytes") == 0, f"the {name} kernel spills")
     return env
 
 
@@ -436,8 +453,33 @@ def _chain_rows(F, rng, n: int) -> np.ndarray:
     return x[:n]
 
 
+def _sha512_rows(rng, rows: int, n: int = 96) -> np.ndarray:
+    """Random rows, then (as far as they fit) an all-0x00, an all-0xff and
+    a row one bit apart from the first random one."""
+    x = rng.integers(0, 256, size=(rows + 3, n), dtype=np.uint8)
+    x[0], x[1] = 0, 0xFF
+    x[2] = x[3]
+    if n:
+        x[2, n // 2] ^= 0x10
+    return x[:rows]
+
+
+def _sha512_check(torch, K, x: np.ndarray) -> int:
+    """Digest bytes where the kernel differs from its plain version (on the
+    card) or from hashlib."""
+    import hashlib
+
+    xt = torch.from_numpy(x).to("cuda")
+    got, want = K.sha512(xt), K.sha512_plain(xt)
+    torch.cuda.synchronize()
+    got = got.cpu().numpy()
+    lib = np.stack([np.frombuffer(hashlib.sha512(r.tobytes()).digest(), np.uint8) for r in x])
+    return int((got != want.cpu().numpy()).sum() + (got != lib).sum())
+
+
 def phase_kernels(torch, F, E, K, ref, rng, card: str) -> dict:
-    """Every kernel against its plain version at KERNEL_SIZES, raw limbs."""
+    """Every kernel against its plain version at KERNEL_SIZES, raw limbs
+    (digest bytes for SHA-512)."""
     dev = torch.device("cuda")
     errs = {name: 0 for name in K.KERNELS}
     keys = [ref.public_key(rng.bytes(32)) for _ in range(32)] + SMALL_ORDER  # rows 32-35: small order
@@ -504,6 +546,11 @@ def phase_kernels(torch, F, E, K, ref, rng, card: str) -> dict:
         check(err == 0 and more.get("compress_equal", True) and more.get("oracle_ok", True),
               f"ladder kernel disagrees with its plain version at {n}")
         errs["ladder"] = max(errs["ladder"], err)
+        lengths = (96,) + (SHA512_LENGTHS if n == B else ())
+        bad = {length: _sha512_check(torch, K, _sha512_rows(rng, n, length)) for length in lengths}
+        emit("kernels", kernel="sha512", batch=n, digests_equal=not any(bad.values()), bytes_differing=bad,
+             card=card)
+        check(not any(bad.values()), f"sha512 kernel disagrees with its plain version or hashlib at {n}: {bad}")
     return errs
 
 
@@ -1371,9 +1418,10 @@ HEALTH_CHAOS = dict(n=4, clients=8, requests_each=30, window=8, batch=32, batch_
                     heal_at_s=6.0, deadline_s=120.0, seed=12, blackbox_dir=None)
 # The crash arm's load must outlast the heal at 6 s and the revived
 # backup's catch-up, or the backup dies and comes back on an idle cluster:
-# 30 per client lasted 1.3 s on an H100 (~190 req/s), so this arm sends 320
-# per client (~12 s).
-HEALTH_CRASH_REQUESTS = 320
+# 320 per client lasted 6.2 s on an H100 with the SHA-512 kernel (~410
+# req/s, too short for the catch-up), so this arm sends 700 per client
+# (~14 s).
+HEALTH_CRASH_REQUESTS = 700
 HEALTH_TOP_WINDOW_S = 4  # pbft_top --once sampling window, under load (cut from 8)
 HEALTH_ENDURANCE_S = 10  # endurance_soak's CI size is 180 s; cut so that the smoke fits its time
 
@@ -1609,6 +1657,9 @@ def phase_health(K, VS, card: str, backend: str = "cuda") -> dict:
 # 4,096 window as the profile step would (dropped so that the smoke fits).
 EVIDENCE_STEPS = "kernel,decomp"
 EVIDENCE_STAGE_TOLERANCE = 0.15  # the stages' device busy ms against the whole window's
+# The SHA-512 stage's device activities: its concatenation and its kernel
+# (the plain version's ~14.5k elementwise kernels would read far above).
+SHA512_STAGE_MAX_ACTIVITIES = 8
 # chaos_soak at n = 4: seeds x modes of this many steps (the script's soak
 # is 25 seeds x 400 steps x n = 4, 7 x both modes).
 EVIDENCE_CHAOS = dict(seeds=1, steps=120, modes=("sig", "mac"))
@@ -1682,6 +1733,8 @@ def phase_evidence(K, VS, card: str, backend: str = "cuda", engine=None) -> tupl
             check([st["stage"] for st in stages] == ["sha512", "mod_l", "decompress", "ladder", "compress", "compare"]
                   and all(_positive(st, ("ms", "busy_ms", "activities")) and st["outputs_equal_eager"] is True
                           for st in stages), f"decomp stages: {stages}")
+            check(stages[0]["kernel"] == "sha512" and stages[0]["activities"] <= SHA512_STAGE_MAX_ACTIVITIES,
+                  f"the sha512 stage does not run the kernel: {stages[0]}")
             check(abs(decomp["stages_over_window"] - 1) <= EVIDENCE_STAGE_TOLERANCE,
                   f"the stages' {decomp['stages_busy_ms']} busy ms against the window's "
                   f"{decomp['window']['busy_ms']} busy ms")
@@ -2337,12 +2390,14 @@ def phase_timing(torch, F, E, K, batch, pool, rng, card, env) -> dict:
     a_neg = E.point_neg(a_pt)
     sb = torch.from_numpy(rng.integers(0, 2, size=(B, 256)).astype(np.int32)).to(dev)
     hb = torch.from_numpy(rng.integers(0, 2, size=(B, 256)).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(_sha512_rows(rng, B)).to(dev)
     sm_clk = env["sms"] * env["sm_clock_max_mhz"] * 1e6  # SM-clocks per second
     out = {}
     for name, fn, plain, iters, plain_iters in (
         ("inv", lambda: K.inv(x), lambda: K.inv_plain(x), 20, 3),
         ("p58", lambda: K.pow_p58(x), lambda: K.pow_p58_plain(x), 20, 3),
         ("ladder", lambda: K.ladder(sb, hb, a_neg), lambda: K.ladder_plain(sb, hb, a_neg), 5, 1),
+        ("sha512", lambda: K.sha512(rows), lambda: K.sha512_plain(rows), 50, 3),
     ):
         ms = cuda_ms(fn, iters, warmup=2)
         plain_ms = cuda_ms(plain, plain_iters, warmup=1)

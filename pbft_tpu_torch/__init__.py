@@ -16,8 +16,9 @@ Modules, each named after its JAX counterpart:
 
 - ``crypto.ref``      RFC 8032 oracle and signer (hashlib only)
 - ``crypto.field``    GF(2^255-19) and mod-L limb arithmetic
-- ``crypto.sha512``   SHA-512 on int64-held 32-bit halves
-- ``crypto.kernels``  the three kernel wrappers, plain versions, counters
+- ``crypto.sha512``   SHA-512: a CUDA kernel on a card, int64-held 32-bit
+  halves in plain torch on the CPU
+- ``crypto.kernels``  the four kernel wrappers, plain versions, counters
 - ``crypto.ed25519``  decompress / Shamir ladder / compress / verify_kernel
 - ``crypto.batch``    pad ladder and ``verify_many``
 - ``parallel.verifier``  a window sharded over the local cards, per-round

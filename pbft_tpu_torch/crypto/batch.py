@@ -2,7 +2,7 @@
 
 ``verify_batch(pubs, msgs, sigs, device=None)`` verifies B independent
 Ed25519 signatures in one pass of ``ed25519.verify_kernel`` on the card (or
-on the CPU when asked), launching each of the three CUDA kernels once. On
+on the CPU when asked), launching each of the four CUDA kernels once. On
 the card the pass is a CUDA graph captured at the first batch of each shape
 (as ``jax.jit`` traces once per shape; ``utils/graphs.py``) and replayed
 through static buffers after. ``verify_many`` pads a list of byte triples to

@@ -12,8 +12,9 @@ Cofactorless, strict S < L: the accept set of the RFC 8032 oracle ``ref``.
 
 Points are tuples (X, Y, Z, T) of (..., 32) int32 limb tensors. The three
 long multiply chains go through ``kernels``: ``pow_p58`` (in sqrt_ratio),
-``inv`` (in compress) and ``ladder``. On a CUDA tensor each launches its
-CUDA kernel; on a CPU tensor each runs its plain version. There is no
+``inv`` (in compress) and ``ladder``, and the challenge hash through
+``sha512`` (``kernels.sha512``). On a CUDA tensor each launches its CUDA
+kernel; on a CPU tensor each runs its plain version. There is no
 environment switch.
 """
 

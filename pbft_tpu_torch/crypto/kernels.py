@@ -1,4 +1,4 @@
-"""The three CUDA kernels of the verify path: wrappers, plain versions,
+"""The four CUDA kernels of the verify path: wrappers, plain versions,
 launch counters and the build.
 
 =========  ======================  ====================================
@@ -7,20 +7,22 @@ wrapper    CUDA source             replaces (pbft_tpu/crypto/...)
 ``inv``      ``csrc/chains.cu``    ``pallas_kernels.py`` ``_inv_kernel``
 ``pow_p58``  ``csrc/chains.cu``    ``pallas_kernels.py`` ``_p58_kernel``
 ``ladder``   ``csrc/ladder.cu``    ``pallas_kernels.py`` ``_ladder_kernel``
+``sha512``   ``csrc/sha512.cu``    none: plain ``sha512.py``
 =========  ======================  ====================================
 
 Each wrapper takes its plain PyTorch version (``inv_plain``,
-``pow_p58_plain``, ``ladder_plain``: the ports of ``field.inv``,
-``field.pow_p58`` and ``ed25519.shamir_ladder``) **only** for a tensor on
-the CPU. For a CUDA tensor it launches its kernel or raises; nothing falls
-back. Inputs are checked (device, dtype, shape, contiguity, 16-byte
-alignment) and handed to the kernels in their own batch-major (..., 32)
-layout, with no transposes; a group of lanes of one warp owns each item
-(``csrc/fe25519.cuh``). Kernels launch on the calling thread's current
-stream: on a graph's own stream when it is captured
-(``utils/graphs.py``). ``LAUNCHES`` counts kernel launches per wrapper; a
-launch that is recorded into a CUDA graph is counted at each replay of the
-graph instead (``recording``, ``add_launches``).
+``pow_p58_plain``, ``ladder_plain``, ``sha512_plain``: the ports of
+``field.inv``, ``field.pow_p58``, ``ed25519.shamir_ladder`` and
+``sha512.sha512``) **only** for a tensor on the CPU. For a CUDA tensor it
+launches its kernel or raises; nothing falls back. Inputs are checked
+(dtype, shape, contiguity, alignment, device) and handed to the kernels in
+their own batch-major layout, with no transposes: (..., 32) limbs, where a
+group of lanes of one warp owns each item (``csrc/fe25519.cuh``), or
+(..., n) bytes, one thread a row (``csrc/sha512.cu``). Kernels launch on
+the calling thread's current stream: on a graph's own stream when it is
+captured (``utils/graphs.py``). ``LAUNCHES`` counts kernel launches per
+wrapper; a launch that is recorded into a CUDA graph is counted at each
+replay of the graph instead (``recording``, ``add_launches``).
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` at first use, one
 process per source started together, into plain-C shared libraries loaded
@@ -36,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -54,13 +57,22 @@ ARCH = "sm_90a"
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pbft_tpu_torch"
 # library name -> source; each library is built by its own nvcc process.
-_SOURCES = {"chains": "chains.cu", "ladder": "ladder.cu"}
+_SOURCES = {"chains": "chains.cu", "ladder": "ladder.cu", "sha512": "sha512.cu"}
 _HEADERS = ("fe25519.cuh",)
 # wrapper -> (library, C entry point, mangled-name fragment of its kernel).
 KERNELS = {
     "inv": ("chains", "pbft_inv", "chain_kernelILb1"),
     "p58": ("chains", "pbft_pow_p58", "chain_kernelILb0"),
     "ladder": ("ladder", "pbft_ladder", "ladder_kernel"),
+    "sha512": ("sha512", "pbft_sha512_rows", "sha512_kernel"),
+}
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# C entry point -> its ctypes argument types (pointers and stream as void*).
+ARGTYPES = {
+    "pbft_inv": [_VP, _VP, _CI, _VP],
+    "pbft_pow_p58": [_VP, _VP, _CI, _VP],
+    "pbft_ladder": [_VP] * 11 + [_CI, _VP],
+    "pbft_sha512_rows": [_VP, _VP, _CI, _CI, _VP],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -197,11 +209,10 @@ def build(cache_dir=None) -> dict:
             if report.exists():
                 ptxas.update(_parse_ptxas(report.read_text()))
             _libs[lib] = ctypes.CDLL(str(out_dir / f"lib{lib}.so"))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
         for lib, entry, _ in KERNELS.values():
             fn = getattr(_libs[lib], entry)
-            fn.restype = ci
-            fn.argtypes = [vp] * (11 if entry == "pbft_ladder" else 2) + [ci, vp]
+            fn.restype = _CI
+            fn.argtypes = ARGTYPES[entry]
         BUILD_INFO.update(
             dir=str(out_dir),
             build_s=time.perf_counter() - t0,
@@ -220,17 +231,22 @@ def _entry(name: str):
     return getattr(_libs[lib], entry)
 
 
-def _check(x: torch.Tensor, what: str, last: int) -> None:
-    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+def _check(x: torch.Tensor, what: str, last=None, dtype=torch.int32, align: int = 16) -> None:
+    """Raise ``ValueError`` unless ``x`` is a contiguous, ``align``-byte
+    aligned CUDA tensor of ``dtype`` and shape (..., last) (any last
+    dimension for ``last=None``)."""
+    if not isinstance(x, torch.Tensor):
         raise ValueError(f"{what}: expected a CUDA tensor")
-    if x.dtype != torch.int32:
-        raise ValueError(f"{what}: expected int32, got {x.dtype}")
-    if x.dim() < 1 or x.shape[-1] != last:
-        raise ValueError(f"{what}: expected shape (..., {last}), got {tuple(x.shape)}")
+    if x.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {x.dtype}")
+    if x.dim() < 1 or (last is not None and x.shape[-1] != last):
+        raise ValueError(f"{what}: expected shape (..., {last or 'n'}), got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{what}: expected a 16-byte aligned tensor")
+    if x.data_ptr() % align:
+        raise ValueError(f"{what}: expected a {align}-byte aligned tensor")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor")
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -349,3 +365,31 @@ def ladder(s_bits: torch.Tensor, h_bits: torch.Tensor, a_neg):
         _raise_on(rc, "ladder")
         _count("ladder")
         return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# The SHA-512 kernel.
+# ---------------------------------------------------------------------------
+
+
+def sha512_plain(msg):
+    """Plain version of ``sha512``: ``sha512.sha512_plain``."""
+    from .sha512 import sha512_plain
+
+    return sha512_plain(msg)
+
+
+def sha512(msg: torch.Tensor) -> torch.Tensor:
+    """SHA-512 of each row of a (..., n) uint8 tensor: (..., 64) uint8
+    digests on its device. Any n; the kernel pads each row itself."""
+    if msg.device.type == "cpu":
+        return sha512_plain(msg)
+    _check(msg, "sha512", dtype=torch.uint8, align=1)
+    lead = tuple(msg.shape[:-1])
+    rows = math.prod(lead)
+    with torch.cuda.device(msg.device):
+        out = torch.empty(lead + (64,), dtype=torch.uint8, device=msg.device)
+        rc = _entry("sha512")(msg.data_ptr(), out.data_ptr(), rows, msg.shape[-1], _stream(msg.device))
+        _raise_on(rc, "sha512")
+        _count("sha512")
+        return out

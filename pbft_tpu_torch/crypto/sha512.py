@@ -10,6 +10,10 @@ is held in an **int64** tensor masked to [0, 2^32): shifts of a non-negative
 int64 are logical, sums cannot overflow, and the ``_add64`` carry keeps the
 JAX module's unsigned-compare logic. The round constants and initial state
 are derived from first principles (FIPS 180-4 §4.2.3/§5.3.5).
+
+``sha512`` runs this plain version (``sha512_plain``) on a CPU tensor and
+the CUDA kernel (``kernels.sha512``, ``csrc/sha512.cu``) on a card, with no
+fallback: the plain version is the CPU path and the kernel's yardstick.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import math
 
 import numpy as np
 import torch
+
+from . import kernels
 
 _MASK64 = (1 << 64) - 1
 _M32 = 0xFFFFFFFF
@@ -151,7 +157,17 @@ def _consts(n: int, dev: torch.device):
 
 
 def sha512(msg) -> torch.Tensor:
-    """SHA-512 of a fixed-length byte tensor.
+    """SHA-512 of a fixed-length byte tensor: ``sha512_plain`` on the CPU,
+    the CUDA kernel on a card (``kernels.sha512``, which raises on anything
+    else).
+
+    msg: (..., N) uint8. Returns (..., 64) uint8 digest on msg's device.
+    """
+    return kernels.sha512(msg)
+
+
+def sha512_plain(msg) -> torch.Tensor:
+    """SHA-512 of a fixed-length byte tensor, in plain PyTorch ops.
 
     msg: (..., N) uint8. Returns (..., 64) uint8 digest on msg's device.
     """

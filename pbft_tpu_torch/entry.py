@@ -31,7 +31,7 @@ def _signed(count: int, msg_tag: int):
 def entry(device=None):
     """(fn, example_args): fn(pubs (16,32), msgs (16,32), sigs (16,64)) uint8
     tensors -> (16,) bool is ``ed25519.verify_kernel`` (SHA-512 challenge,
-    decompression, the Shamir ladder; the three CUDA kernels on a card), and
+    decompression, the Shamir ladder; the four CUDA kernels on a card), and
     the example is 16 valid triples staged on ``device`` (None = the card)."""
     from .crypto.ed25519 import verify_kernel
 

@@ -6,7 +6,7 @@ and the round step: the port of ``pbft_tpu/parallel/verifier.py``.
   ``torch.distributed`` group it spans.
 - ``sharded_verify``: a window of B rows splits into equal row blocks, one
   per local shard. Each shard is verified on its device by
-  ``ed25519.verify_kernel`` (the three CUDA kernels on a card, their plain
+  ``ed25519.verify_kernel`` (the four CUDA kernels on a card, their plain
   versions on the CPU) in a window captured once per block shape
   (``utils/graphs.py``: one CUDA graph with the copies in and out, replayed
   per window on a stream of its own; the counterpart of ``jax.jit``). The

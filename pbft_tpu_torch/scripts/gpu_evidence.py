@@ -212,7 +212,7 @@ STAGES = (
     ("compare", _stage_compare, ("enc", "sig", "ok_a", "s_ok"), ("valid",)),
 )
 # The CUDA kernel each stage launches (kernels.KERNELS names).
-STAGE_KERNELS = {"decompress": "p58", "ladder": "ladder", "compress": "inv"}
+STAGE_KERNELS = {"sha512": "sha512", "decompress": "p58", "ladder": "ladder", "compress": "inv"}
 
 
 def run_stages(pub, msg, sig) -> dict:
@@ -346,7 +346,8 @@ def step_decomp(batch: int, out_dir: Path) -> dict:
     rate_c, _ = chained_rate(lambda v: F.carry(v, passes=4), x, CHAIN)
     msgs = torch.from_numpy(rng.integers(0, 256, (batch, 32), dtype=np.uint8)).to(dev)
     log("decomp: field rates done")
-    rate_s, _ = chained_rate(lambda m: sha512(m)[:, :32], msgs, SHA_CHAIN)
+    # The kernel takes contiguous rows: each link copies its digest's half.
+    rate_s, _ = chained_rate(lambda m: sha512(m)[:, :32].contiguous(), msgs, SHA_CHAIN)
     out.update(field_mul_per_sec=rate, field_mul_capture_s=capture_s, carry_per_sec=rate_c,
                carry_share_of_mul=rate / rate_c, sha512_32B_per_sec=rate_s)
     log("decomp: component rates done")

@@ -131,7 +131,7 @@ def test_plain_cpu_arm_runs_the_chain_with_checked_verdicts(monkeypatch, capsys)
     assert line["backend"] == "cpu" and line["value"] > 0
     assert (line["batch"], line["chain"], line["chains"], line["applications"]) == (16, 2, 1, 2)
     assert line["capture_s"] == 0.0 and line["window_ms"] > 0
-    assert line["launches"] == {"inv": 0, "p58": 0, "ladder": 0}  # plain versions: no kernel launched
+    assert line["launches"] == {"inv": 0, "p58": 0, "ladder": 0, "sha512": 0}  # plain versions: no kernel launched
     assert "card" not in line
 
 
@@ -219,4 +219,4 @@ def test_cuda_worker_times_one_graph_of_the_chain():
     assert line["backend"] == "cuda" and line["value"] > 0 and line["card"]
     assert (line["batch"], line["chain"]) == (64, 2) and line["capture_s"] > 0
     assert line["applications"] == 2 * line["chains"]
-    assert line["launches"] == dict.fromkeys(("inv", "p58", "ladder"), line["applications"])
+    assert line["launches"] == dict.fromkeys(("inv", "p58", "ladder", "sha512"), line["applications"])

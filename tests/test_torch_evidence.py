@@ -225,7 +225,7 @@ def test_gpu_evidence_stages_compose_to_the_verify_kernel():
     for _, _, ins, outs in gpu_evidence.STAGES:  # each stage reads only earlier outputs
         assert set(ins) <= produced
         produced |= set(outs)
-    assert set(gpu_evidence.STAGE_KERNELS.values()) == {"inv", "p58", "ladder"}
+    assert set(gpu_evidence.STAGE_KERNELS.values()) == {"sha512", "inv", "p58", "ladder"}
 
 
 def test_gpu_evidence_signed_pool_and_step_rejection(tmp_path):

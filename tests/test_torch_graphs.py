@@ -205,11 +205,12 @@ def test_recorded_launches_count_once_per_replay():
     with K.recording() as recorded:
         K._count("ladder")
         K._count("inv")
-    assert K.LAUNCHES == {"inv": 0, "p58": 0, "ladder": 0}
-    assert recorded == {"inv": 1, "p58": 0, "ladder": 1}
+        K._count("sha512")
+    assert K.LAUNCHES == {"inv": 0, "p58": 0, "ladder": 0, "sha512": 0}
+    assert recorded == {"inv": 1, "p58": 0, "ladder": 1, "sha512": 1}
     for _ in range(3):
         K.add_launches(recorded)
-    assert K.LAUNCHES == {"inv": 3, "p58": 0, "ladder": 3}
+    assert K.LAUNCHES == {"inv": 3, "p58": 0, "ladder": 3, "sha512": 3}
     K._count("p58")  # outside a capture: counted at once
     assert K.LAUNCHES["p58"] == 1
     K.reset_launches()
@@ -246,7 +247,7 @@ def test_replay_equals_eager_on_the_card_at_every_pad_shape(cuda_device):
         TB.verify_batch(pubs, msgs, sigs)  # captured at the shape's first use
         K.reset_launches()
         replayed = TB.verify_batch(pubs, msgs, sigs).cpu()
-        assert K.LAUNCHES == {"inv": 1, "p58": 1, "ladder": 1}, size
+        assert K.LAUNCHES == {"inv": 1, "p58": 1, "ladder": 1, "sha512": 1}, size
         assert torch.equal(replayed, eager), size
         assert replayed.tolist() == [want[i] for i in pick], size
 

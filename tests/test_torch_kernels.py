@@ -1,4 +1,4 @@
-"""The port's three kernel wrappers (pbft_tpu_torch.crypto.kernels).
+"""The port's four kernel wrappers (pbft_tpu_torch.crypto.kernels).
 
 - tier-1: ladder_plain (the plain version of the ladder kernel) against a
   big-integer [S]B + [h](-A) from the port's oracle, compared compressed;
@@ -12,14 +12,28 @@
   sum inside int32.
 - slow: ladder_plain against the JAX shamir_ladder and against the Pallas
   ladder in interpret mode (narrow tiles, as tests/test_pallas_kernels.py).
+- tier-1: the SHA-512 wrapper takes its plain version on the CPU and raises
+  on a non-uint8, non-contiguous or non-CUDA tensor; every C entry point's
+  ctypes signature matches its declaration in ``csrc/``; the body of
+  ``csrc/sha512.cu`` compiled as host C++ (a shim for the CUDA built-ins,
+  one call a thread) against hashlib on every card case below.
 - cuda: each CUDA kernel against its plain version on the card, raw limbs,
-  at ragged sizes and on the hostile-bounds rows (skips on a machine
+  at ragged sizes and on the hostile-bounds rows; the SHA-512 kernel
+  against its plain version and hashlib at every window shape (16-8,192
+  rows), at 1, 17 and 300 rows, at lengths across the one-to-two-block
+  padding edge and on hostile rows (``SHA512_CASES``; the plain version
+  equals the JAX sha512 on the same cases in tests/test_torch_sha512.py);
+  verify_kernel on the card against the oracle (skips on a machine
   without one).
 
-Tolerance: exact equality (raw limbs, and compressed bytes against the
-big-integer oracle)."""
+Tolerance: exact equality (raw limbs, digest bytes, verdict bits, and
+compressed bytes against the big-integer oracle)."""
 
+import hashlib
 import os
+import re
+import shutil
+import subprocess
 
 os.environ.setdefault("PBFT_PALLAS_TB", "8")  # before any pallas_kernels import
 
@@ -309,3 +323,190 @@ def test_ladder_kernel_matches_plain_on_the_card(cuda_device):
     want = K.ladder_plain(sb2, hb2, bad)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The SHA-512 kernel.
+# ---------------------------------------------------------------------------
+
+# name -> (rows, bytes a row): every window shape a path forms, ragged row
+# counts, lengths across the one-to-two-block padding edge (111 bytes pad
+# to one block, 112 to two), and hostile rows at the window's 96 bytes.
+SHA512_CASES = {
+    **{f"rows{r}": (r, 96) for r in (16, 64, 256, 1024, 4096, 8192, 1, 17, 300)},
+    **{f"len{n}": (17, n) for n in (0, 96, 111, 112, 128, 200)},
+    "all_zero": (130, 96),
+    "all_ff": (130, 96),
+    "one_bit_apart": (1 + 96 * 8, 96),
+}
+
+
+def sha512_case(name: str) -> np.ndarray:
+    """The (rows, n) uint8 rows of one case, the same on every machine:
+    random rows with an all-0x00, an all-0xff and a one-bit-flipped row
+    first, or the hostile case whole (``one_bit_apart``: a random row, then
+    that row with each of its bits flipped in turn)."""
+    rows, n = SHA512_CASES[name]
+    rng = np.random.default_rng(list(SHA512_CASES).index(name))
+    x = rng.integers(0, 256, size=(rows, n), dtype=np.uint8)
+    if name == "all_zero":
+        x[:] = 0
+    elif name == "all_ff":
+        x[:] = 0xFF
+    elif name == "one_bit_apart":
+        bit = np.arange(n * 8)
+        x[1:] = x[0]
+        x[1 + bit, bit // 8] ^= (1 << (bit % 8)).astype(np.uint8)
+    elif n:
+        x[: min(rows, 3)] = np.array([[0], [0xFF], [0]], np.uint8)[: min(rows, 3)]
+        if rows > 2:
+            x[2, n // 2] = 0x10
+    return x
+
+
+def _hashlib_rows(x: np.ndarray) -> np.ndarray:
+    return np.stack([np.frombuffer(hashlib.sha512(r.tobytes()).digest(), np.uint8) for r in x])
+
+
+def test_sha512_wrapper_takes_the_plain_version_on_the_cpu():
+    x = torch.from_numpy(sha512_case("len111"))
+    before = dict(K.LAUNCHES)
+    got = K.sha512(x)
+    assert K.LAUNCHES == before, "a CPU call must not count as a kernel launch"
+    assert torch.equal(got, K.sha512_plain(x))
+    np.testing.assert_array_equal(got.numpy(), _hashlib_rows(x.numpy()))
+
+
+@pytest.mark.parametrize("what, msg", [
+    ("int32", torch.empty((4, 96), dtype=torch.int32, device="meta")),
+    ("contiguous", torch.empty((96, 4), dtype=torch.uint8, device="meta").t()),
+    ("CUDA", torch.empty((4, 96), dtype=torch.uint8, device="meta")),
+])
+def test_sha512_wrapper_raises_on_what_the_kernel_does_not_take(what, msg):
+    """Off the CPU the wrapper launches its kernel or raises: a wrong dtype,
+    a strided view and a tensor on another device (here: meta) all raise
+    before anything is launched."""
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match=what):
+        K.sha512(msg)
+    assert K.LAUNCHES == before
+
+
+def test_entry_points_match_their_c_declarations():
+    """Each wrapper's C entry point is declared in its library's source
+    with as many parameters as its ctypes signature, and its kernel's name
+    (the fragment ptxas reports are matched by) is a __global__ there."""
+    for name, (lib, entry, frag) in K.KERNELS.items():
+        src = (K._CSRC / K._SOURCES[lib]).read_text()
+        decl = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+        assert decl, (name, entry)
+        assert len(decl.group(1).split(",")) == len(K.ARGTYPES[entry]), name
+        assert re.search(r"__global__[^;{]*\b" + frag.split("ILb")[0], src), (name, frag)
+
+
+_SHIM = r"""
+#include <cstdint>
+#include <cstdio>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __constant__
+#define __launch_bounds__(n)
+struct { unsigned x; } blockIdx, threadIdx;
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (s & 31));
+}
+static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+"""
+
+_DRIVER = r"""
+int main(int argc, char** argv) {
+  const int rows = atoi(argv[1]), n = atoi(argv[2]);
+  std::vector<uint8_t> in((size_t)rows * n + 1), out((size_t)rows * 64);
+  if (fread(in.data(), 1, (size_t)rows * n, stdin) != (size_t)rows * n) return 2;
+  for (unsigned b = 0; b < (unsigned)(rows + SHA512_THREADS - 1) / SHA512_THREADS; ++b)
+    for (unsigned t = 0; t < SHA512_THREADS; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      sha512_kernel(in.data(), out.data(), rows, n);
+    }
+  fwrite(out.data(), 1, out.size(), stdout);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def sha512_host_binary(tmp_path_factory):
+    """csrc/sha512.cu's kernel compiled as host C++: its CUDA built-ins
+    shimmed, its launcher left out, each CUDA thread one call."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to compile the kernel's body for the host")
+    src = (K._CSRC / "sha512.cu").read_text()
+    body = src.replace("#include <cuda_runtime.h>", "").split('extern "C"')[0]
+    path = tmp_path_factory.mktemp("sha512_host")
+    (path / "sha512_host.cc").write_text(_SHIM + body + "#include <cstdlib>\n" + _DRIVER)
+    binary = path / "sha512_host"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-fsanitize=undefined", "-fno-sanitize-recover=all",
+                    "-o", str(binary), str(path / "sha512_host.cc")], check=True, capture_output=True, timeout=300)
+    return binary
+
+
+@pytest.mark.parametrize("case", list(SHA512_CASES))
+def test_sha512_kernel_body_on_the_host_matches_hashlib(sha512_host_binary, case):
+    x = sha512_case(case)
+    run = subprocess.run([str(sha512_host_binary), str(x.shape[0]), str(x.shape[1])], input=x.tobytes(),
+                         capture_output=True, check=True, timeout=120)
+    got = np.frombuffer(run.stdout, np.uint8).reshape(x.shape[0], 64)
+    np.testing.assert_array_equal(got, _hashlib_rows(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SHA512_CASES))
+def test_sha512_kernel_matches_plain_and_hashlib_on_the_card(cuda_device, case):
+    x = sha512_case(case)
+    before = K.LAUNCHES["sha512"]
+    got = K.sha512(torch.from_numpy(x).to(cuda_device)).cpu()
+    assert K.LAUNCHES["sha512"] == before + 1
+    assert torch.equal(got, K.sha512_plain(torch.from_numpy(x))), case
+    np.testing.assert_array_equal(got.numpy(), _hashlib_rows(x))
+
+
+def _verdict_batch():
+    """Valid signatures beside bad signatures (R, S + L, message), bad keys
+    (y = p, off the curve, small order) and the Byzantine signer's 0xff
+    signatures."""
+    items = []
+    for i in range(6):
+        seed = bytes([0x31 + i]) * 32
+        pub, msg = ref.public_key(seed), bytes([i]) * 32
+        sig = ref.sign(seed, msg)
+        s = int.from_bytes(sig[32:], "little")
+        items += [(pub, msg, sig), (pub, msg, bytes([sig[0] ^ 1]) + sig[1:]),
+                  (pub, msg, sig[:32] + (s + ref.L).to_bytes(32, "little")),
+                  (pub, bytes([i ^ 0x80]) * 32, sig), (pub, msg, b"\xff" * 64)]
+    pub0, msg0, sig0 = items[0]
+    off_curve = next(k.to_bytes(32, "little") for k in range(2, 1000)
+                     if ref.point_decompress(k.to_bytes(32, "little")) is None)
+    items += [((2**255 - 19).to_bytes(32, "little"), msg0, sig0), (off_curve, msg0, sig0)]
+    items += [(enc, msg0, sig0) for enc in _SMALL_ORDER]
+    return items
+
+
+@pytest.mark.cuda
+def test_verify_kernel_on_the_card_equals_the_oracle(cuda_device):
+    items = _verdict_batch()
+    arrays = [torch.from_numpy(np.stack([np.frombuffer(it[k], np.uint8) for it in items])).to(cuda_device)
+              for k in range(3)]
+    K.reset_launches()
+    got = E.verify_kernel(*arrays).cpu().tolist()
+    assert K.LAUNCHES == {name: 1 for name in K.KERNELS}
+    want = [ref.verify(*it) for it in items]
+    assert want.count(True) == 6 and got == want
